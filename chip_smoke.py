@@ -10,30 +10,42 @@ quantification of a transcriptome BAM) at full width through the entry
 points a user calls. One JSON object per phase goes to standard output:
 
   env            card name and power limit, torch/CUDA versions, which
-                 host helpers were built natively
-  kernels        the kernels built, with build seconds
+                 host helpers were built natively (all of them must be)
+  kernels        the four kernels built (one nvcc each, all started
+                 together), with build seconds
   k1_vs_plain    sorted-gather kernel vs its plain version on the bench
                  CSR (R=2,000,000 reads, T=200,000 transcripts, A~6M
                  alignments): bit-equal for f32/f64 and 1/8 replicates;
                  kernel, plain and `index_select` times; the byte bound
+  k2_k3_k4_vs_plain  the routed (v4) plan of the same CSR, with its build
+                 seconds and geometry; tile permute, route stage and fused
+                 middle each bit-equal in f32 to its plain version at the
+                 plan's shapes; kernel, plain and (K2, K3) `index_select`
+                 times; the byte bounds
   em_full_width  the same CSR as an AlignmentStore through
-                 `perform_inference_and_write_output` on the card: f32,
-                 `--em-impl pallas`, 8 bootstrap replicates; a second run
-                 (bit-identical); `--em-impl segsum` on the card
+                 `perform_inference_and_write_output` on the card, f32:
+                 `--em-impl v4` with 8 bootstrap replicates, a second v4
+                 run (bit-identical, its plan out of the plan cache),
+                 `--em-impl pallas` with 8 replicates, `--em-impl segsum`
   cli_e2e        a collated BAM of the same scale through the CLI with
-                 its defaults (cuda, auto -> pallas), coverage model and
-                 assignment probabilities on; then the kernel against its
-                 plain version on the gather plan of that BAM
-  em_breakdown   only with --breakdown: the m-step alone, and the loop with
-                 and without the host's per-iteration read of the stop flag
+                 its defaults (cuda, auto -> v4), coverage model and
+                 assignment probabilities on; then a smaller BAM through
+                 the CLI with `--em-impl pallas`, and the sorted-gather
+                 kernel against its plain version on that BAM's own plan
+  em_breakdown   only with --breakdown: the `pallas` and the `v4` m-step
+                 alone, and the loop with and without the host's
+                 per-iteration read of the stop flag
   {"kernels": [...]}   per kernel: launches on the main path (in all and
                  per phase), error, times and bound
   <card name>, <power limit>
   {"ok": true, "device": {...}}
 
-Each phase that drives the main path sets the kernel's launch count to 0
-just before and reads it just after, and the count must be exactly one
-launch per m-step of that phase (bootstrap batches included).
+Each phase that drives the main path sets every kernel's launch count to 0
+just before and reads the counts just after, and each count must be exact:
+per m-step one sorted gather (`pallas`), or two tile permutes, two route
+stages and one fused middle (`v4`; four route stages and no middle for a
+layout without a level table), with one m-step per iteration plus the
+final one, per run and per bootstrap replicate of a batch.
 """
 
 from __future__ import annotations
@@ -41,6 +53,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import re
 import shutil
 import struct
@@ -67,7 +80,11 @@ from oarfish_tpu_torch.host.store import (
 )
 from oarfish_tpu_torch.kernels import build as kernel_build
 from oarfish_tpu_torch.models.coverage import _get_lib as _get_covmodel_lib
+from oarfish_tpu_torch.ops import balance, em_v4, permute_plan
+from oarfish_tpu_torch.ops import route_middle as rm
+from oarfish_tpu_torch.ops import route_stage as rs
 from oarfish_tpu_torch.ops import sorted_gather as sg
+from oarfish_tpu_torch.ops import tile_permute as tp
 from oarfish_tpu_torch.ops.bootstrap import BOOT_BATCH
 from oarfish_tpu_torch.ops.em_fast import FastEmData
 from oarfish_tpu_torch.quant.bulk import perform_inference_and_write_output
@@ -78,6 +95,34 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 MEAN_K = 3
 FULL_READS, FULL_TXPS = 2_000_000, 200_000  # the bench shape
+SMALL_READS = 500_000  # the second CLI run (`--em-impl pallas`)
+EM_DENOM_THRESH = 1e-30
+
+# name -> (wrapper module holding `launch_count`, CUDA source, the Pallas
+# call it replaces in the JAX package)
+KERNELS = {
+    "sorted_gather": (sg, "sorted_gather.cu", "ops/gather_pallas.py:156"),
+    "tile_permute": (tp, "tile_permute.cu", "ops/static_permute.py:119"),
+    "route_stage": (rs, "route_stage.cu", "ops/static_permute.py:771"),
+    "route_middle": (rm, "route_middle.cu", "ops/static_permute.py:984"),
+}
+
+
+def reset_launch_counts() -> None:
+    for module, _, _ in KERNELS.values():
+        module.launch_count = 0
+
+
+def launch_counts() -> dict:
+    return {name: module.launch_count
+            for name, (module, _, _) in KERNELS.items()}
+
+
+def v4_launches(m_steps: int, fused: bool) -> dict:
+    """Launches of `m_steps` routed m-steps."""
+    return {"sorted_gather": 0, "tile_permute": 2 * m_steps,
+            "route_stage": (2 if fused else 4) * m_steps,
+            "route_middle": m_steps if fused else 0}
 
 
 def emit(phase: str, **fields) -> None:
@@ -268,19 +313,39 @@ def kernel_equals_plain(tab, base, lane, use_hi) -> float:
     return float((got - want).abs().max())
 
 
+def bit_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Hold a kernel's output bit for bit against its plain version's;
+    returns the largest absolute difference (0.0)."""
+    torch.cuda.synchronize(got.device)
+    assert got.shape == want.shape and got.dtype == want.dtype, name
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name} differs from its plain version")
+    return float((got - want).abs().max())
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
 class EmLogCapture(logging.Handler):
     """Collects (impl, iterations, seconds) from the log lines of
-    `quant/bulk.py`, and the bootstrap seconds and iterations."""
+    `quant/bulk.py`, the bootstrap seconds and iterations, what `auto`
+    resolved to, the route build seconds and the plan-cache hits."""
 
     EM = re.compile(r"(\w+) EM on \S+ \(\w+\) converged after (\d+) "
                     r"iterations in ([0-9.]+)s")
     BOOT = re.compile(r"(\d+) bootstrap replicates in ([0-9.]+)s, "
                       r"iterations \[([0-9, ]*)\]")
+    AUTO = re.compile(r"em-impl auto -> (\w+)")
+    ROUTING = re.compile(r"v4 routing built in ([0-9.]+)s")
 
     def __init__(self):
         super().__init__(level=logging.INFO)
         self.em = []
         self.boot = []
+        self.auto = []
+        self.routing = []
+        self.cache_hits = 0
         self.warnings = []
 
     def emit(self, record):
@@ -292,6 +357,14 @@ class EmLogCapture(logging.Handler):
         if m:
             self.boot.append((int(m.group(1)), float(m.group(2)),
                               [int(x) for x in m.group(3).split(",")]))
+        m = self.AUTO.search(msg)
+        if m:
+            self.auto.append(m.group(1))
+        m = self.ROUTING.search(msg)
+        if m:
+            self.routing.append(float(m.group(1)))
+        if "v4 plan cache hit" in msg:
+            self.cache_hits += 1
         if record.levelno >= logging.WARNING:
             self.warnings.append(msg)
 
@@ -307,31 +380,42 @@ def read_quant(path) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 def phase_env() -> str:
+    """Fails where a native host library did not build: the run would
+    otherwise go through the slow NumPy / pure-Python paths and measure
+    another program."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+    host_native = {
+        "bam_decoder": native.available(),
+        "fmt": fmt_native.get_lib() is not None,
+        "coverage": _get_cov_lib() is not None,
+        "covmodel": _get_covmodel_lib() is not None,
+        "euler_color": permute_plan._get_color_lib() is not None,
+        "balance": balance.available(),
+    }
     emit(
         "env", card=smi, python=sys.version.split()[0],
         torch=torch.__version__, cuda=torch.version.cuda,
-        host_native={
-            "bam_decoder": native.available(),
-            "fmt": fmt_native.get_lib() is not None,
-            "coverage": _get_cov_lib() is not None,
-            "covmodel": _get_covmodel_lib() is not None,
-        },
-        host_build_seconds=kernel_build.build_seconds,
+        host_native=host_native,
+        host_build_seconds=dict(kernel_build.build_seconds),
     )
+    missing = [k for k, ok in host_native.items() if not ok]
+    if missing:
+        raise RuntimeError(f"native host libraries did not build: {missing}")
     return smi
 
 
 def phase_kernels() -> None:
-    built = {}
+    assert set(KERNELS) == set(kernel_build.CUDA_KERNELS)
     t0 = time.time()
-    kernel_build.cuda_library("sorted_gather")
-    built["sorted_gather"] = round(time.time() - t0, 3)
-    emit("kernels", kernels=["sorted_gather"], build_seconds=built,
+    kernel_build.build_cuda_libraries()
+    emit("kernels", kernels=list(KERNELS),
+         build_seconds={k: round(kernel_build.build_seconds[k], 3)
+                        for k in KERNELS},
+         build_wall_s=round(time.time() - t0, 3),
          nvcc=kernel_build.find_nvcc())
 
 
@@ -390,8 +474,169 @@ def phase_k1_vs_plain(csr, T, device) -> dict:
     return out
 
 
-def phase_em_full_width(csr, R, T, device, tmp: Path, capture):
-    """Returns (the phase's line, launches of the kernel in the phase)."""
+def flat_index(reference, n: int, device) -> torch.Tensor:
+    """The composed flat source index of a gather kernel: its plain
+    version applied to 0..n-1 (f64 holds them exactly)."""
+    iota = torch.arange(n, dtype=torch.float64, device=device)
+    return reference(iota).reshape(-1).long()
+
+
+def bound(n_bytes: int, n_ops: int) -> dict:
+    """Least time for the work: every input read once and every output
+    written once against the card's memory rate, or the operations against
+    its f32 rate."""
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms), bytes=n_bytes, ops=n_ops,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def phase_k2_k3_k4_vs_plain(csr, R, T, device) -> dict:
+    """The three kernels of the routed iteration on the bench CSR's own
+    plan, each against its plain version, f32, bit for bit."""
+    txp_id, w, boundaries, A = csr
+    timings: dict = {}
+    cache = os.environ.get("OARFISH_PLAN_CACHE")
+    os.environ["OARFISH_PLAN_CACHE"] = "0"  # time the build itself
+    try:
+        t0 = time.time()
+        data, order = em_v4.EmV4Data.build(
+            txp_id, w, boundaries, T, device=device, timings=timings)
+        torch.cuda.synchronize(device)
+        build_s = time.time() - t0
+    finally:
+        if cache is None:
+            del os.environ["OARFISH_PLAN_CACHE"]
+        else:
+            os.environ["OARFISH_PLAN_CACHE"] = cache
+    pa, pb = data.p_a, data.p_b
+    CR, L = pa.chunk_rows, rs.LANES
+    fused = data.seg_id is not None
+    strided = pa.Q % L == 0
+    plan = dict(
+        A=A, CR=CR, n_src=pa.n_src, n_dst=pa.n_dst, Q=pa.Q, R1=pa.R1,
+        R3=pa.R3, t_rows=data.t_in.rows, max_lvl=data.max_lvl,
+        n_big=data.n_big, fused_middle=fused, strided_exchange=strided,
+        table_bytes=dict(
+            p_a=nbytes(*pa.tables()), p_b=nbytes(*pb.tables()),
+            t_in=nbytes(data.t_in.r1, data.t_in.r2, data.t_in.src,
+                        data.t_in.lane),
+            lvl=nbytes(data.seg_id)),
+        build_s=round(build_s, 3),
+        build_phases_s={k: round(v, 3) for k, v in timings.items()},
+    )
+    gen = torch.Generator(device="cpu").manual_seed(1)
+
+    def values(*shape):
+        # both signs, so that a wrong source cannot hide behind equal values
+        return (torch.rand(*shape, generator=gen) - 0.3).to(device)
+
+    res = {}
+
+    # K2: both tile permutes of the m-step
+    k2 = {}
+    for tag, t in (("t_in", data.t_in), ("t_out", data.t_out)):
+        x = values(t.n_tiles * t.rows, L)
+        args = (x, t.r1, t.r2, t.src, t.lane, t.rows, t.n_tiles)
+        err = bit_equal(f"tile_permute {tag}", tp.tile_permute_cuda(*args),
+                        tp.tile_permute_reference(*args))
+        idx = flat_index(lambda v: tp.tile_permute_reference(
+            v.reshape(-1, L), *args[1:]), x.numel(), device)
+        flat = x.reshape(-1)
+        k2[tag] = dict(
+            max_abs_err=err,
+            ms=time_ms(lambda: tp.tile_permute_cuda(*args), device),
+            plain_ms=time_ms(lambda: tp.tile_permute_reference(*args),
+                             device, 5, 5),
+            library_ms=time_ms(lambda: flat.index_select(0, idx), device),
+            **bound(nbytes(x, x, t.r1, t.r2, t.src, t.lane), 0))
+    res["tile_permute"] = k2
+
+    # K3: the expand stage with the weights, and the reduce stage the plan
+    # takes (strided where the quota is whole lane tiles)
+    k3 = {}
+    x = values(pa.n_src * CR, L)
+    w_txp = data.w_txp.reshape(-1, L)
+    a1 = (x, pa.s1_r1, pa.s1_src, pa.s1_row, pa.s1_r2, None, pa.n_src, CR,
+          pa.R1)
+    y1 = rs.route_stage_cuda(*a1, mul=w_txp)
+    err = bit_equal("route_stage expand_y1", y1,
+                    rs.route_stage_reference(*a1, mul=w_txp))
+    idx = flat_index(lambda v: rs.route_stage_reference(
+        v.reshape(-1, L), *a1[1:]), x.numel(), device)
+    flat = x.reshape(-1)
+    k3["expand_y1_mul"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: rs.route_stage_cuda(*a1, mul=w_txp), device),
+        plain_ms=time_ms(lambda: rs.route_stage_reference(*a1, mul=w_txp),
+                         device, 5, 5),
+        library_ms=time_ms(lambda: flat.index_select(0, idx), device),
+        **bound(nbytes(x, w_txp, y1, pa.s1_r1, pa.s1_src, pa.s1_row,
+                       pa.s1_r2), y1.numel()))
+    yq = values(pb.n_src * pb.R1, L)
+    if strided:
+        tag, zq = "reduce_strided", pb.quota_view(yq)
+    else:
+        tag = "reduce"
+        zq = yq.reshape(pb.n_src, pb.n_dst, pb.Q).transpose(0, 1)
+        zq = zq.contiguous().reshape(pb.n_dst * pb.R3, L)
+    a3 = (zq, pb.s3_r1, pb.s3_src, pb.s3_row, pb.s3_r2, pb.s3_mask,
+          pb.n_dst, pb.R3, CR)
+    out3 = rs.route_stage_cuda(*a3)
+    err = bit_equal(f"route_stage {tag}", out3,
+                    rs.route_stage_reference(*a3))
+    idx = flat_index(lambda v: rs.route_stage_reference(
+        v.reshape(zq.shape), *a3[1:]), zq.numel(), device)
+    flat = zq.reshape(-1)
+    k3[tag] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: rs.route_stage_cuda(*a3), device),
+        plain_ms=time_ms(lambda: rs.route_stage_reference(*a3), device, 5, 5),
+        library_ms=time_ms(lambda: flat.index_select(0, idx), device),
+        **bound(nbytes(zq, out3, pb.s3_r1, pb.s3_src, pb.s3_row, pb.s3_r2,
+                       pb.s3_mask), 0))
+    res["route_stage"] = k3
+
+    # K4: the fused middle on the expand stage's own output, without and
+    # with bootstrap multiplicities
+    k4 = {}
+    if fused:
+        zg = pa.quota_view(y1) if strided else (
+            y1.reshape(pa.n_src, pa.n_dst, pa.Q).transpose(0, 1)
+            .contiguous().reshape(pa.n_dst * pa.R3, L))
+        rng = np.random.default_rng(2)
+        mult = torch.as_tensor(
+            rng.multinomial(R, np.full(R, 1.0 / R))[order],
+            device=device).float()
+        tables = (pa.s3_r1, pa.s3_src, pa.s3_row, pa.s3_r2, pa.s3_mask,
+                  pb.s1_r1, pb.s1_src, pb.s1_row, pb.s1_r2)
+        am = (zg, data.seg_id, *tables, pa.n_dst, pa.R3, CR,
+              EM_DENOM_THRESH, data.max_lvl)
+        n_c = pa.n_dst * CR * L
+        for tag, m in (("point", None),
+                       ("replicate", em_v4.mult_slots(data, mult))):
+            got = rm.route_middle_cuda(*am, mult=m)
+            err = bit_equal(f"route_middle {tag}", got,
+                            rm.route_middle_reference(*am, mult=m))
+            assert torch.isfinite(got).all()
+            k4[tag] = dict(
+                max_abs_err=err,
+                ms=time_ms(lambda: rm.route_middle_cuda(*am, mult=m), device),
+                plain_ms=time_ms(
+                    lambda: rm.route_middle_reference(*am, mult=m),
+                    device, 3, 3),
+                library_ms=None,
+                # an add, a product (two for a replicate) and a share of a
+                # division per chunk element
+                **bound(nbytes(zg, got, data.seg_id, m, *tables),
+                        (3 if m is None else 4) * n_c))
+    res["route_middle"] = k4
+    emit("k2_k3_k4_vs_plain", plan=plan, bit_equal=True, **res)
+    return dict(plan=plan, **res)
+
+
+def phase_em_full_width(csr, R, T, device, tmp: Path, capture, fused: bool):
+    """Returns (the phase's line, launches per kernel in the phase)."""
     txp_id, w, boundaries, A = csr
     store = AlignmentStore(
         txp_id=txp_id,
@@ -414,104 +659,155 @@ def phase_em_full_width(csr, R, T, device, tmp: Path, capture):
         )
         opts = resolve_filters(args)
         n_em, n_boot = len(capture.em), len(capture.boot)
-        launches0 = sg.launch_count
+        n_route, hits = len(capture.routing), capture.cache_hits
+        reset_launch_counts()
         t0 = time.time()
         counts = perform_inference_and_write_output(
             store, coverage, names, lens, opts, args, {}, 0.0
         )
         torch.cuda.synchronize(device)
         wall = time.time() - t0
-        launched = sg.launch_count - launches0
+        launched = launch_counts()
         impl_ran, iters, em_s = capture.em[n_em]
         assert impl_ran == impl, (impl_ran, impl)
-        # one launch per m-step: the iterations and the final step; the
-        # replicates run as one batch, to its slowest replicate's count
-        want = iters + 1
+        # one m-step per iteration and the final one; a batch of replicates
+        # runs to its slowest replicate's count, every replicate of it
+        # through its own launches (v4) or all in one launch (pallas)
+        m_steps = iters + 1
         boot_s = boot_iters = None
         if boots:
             n_reps, boot_s, boot_iters = capture.boot[n_boot]
             assert n_reps == boots == len(boot_iters) <= BOOT_BATCH
-            want += max(boot_iters) + 1
-        if impl != "pallas":
-            want = 0
+            m_steps += (max(boot_iters) + 1) * (boots if impl == "v4" else 1)
+        want = dict.fromkeys(KERNELS, 0)
+        if impl == "pallas":
+            want["sorted_gather"] = m_steps
+        elif impl == "v4":
+            want = v4_launches(m_steps, fused)
         assert launched == want, (impl, launched, want)
         assert np.isfinite(counts).all() and counts.shape == (T,)
         assert np.array_equal(read_quant(str(tmp / tag) + ".quant"), counts)
-        return counts, dict(iterations=iters, em_s=em_s,
-                            ms_per_iteration=em_s / (iters + 1) * 1e3,
-                            bootstrap_s=boot_s, bootstrap_iterations=boot_iters,
-                            launches=launched, wall_s=round(wall, 3))
+        res = dict(iterations=iters, em_s=em_s,
+                   ms_per_iteration=em_s / (iters + 1) * 1e3,
+                   bootstrap_s=boot_s, bootstrap_iterations=boot_iters,
+                   launches=launched, wall_s=round(wall, 3))
+        if impl == "v4":
+            res["routing_s"] = capture.routing[n_route]
+            res["plan_cache_hit"] = capture.cache_hits > hits
+        return counts, res
 
     warn0 = len(capture.warnings)
-    sg.launch_count = 0
-    c1, s1 = run("pallas", "pallas", 8)
-    c2, s2 = run("pallas2", "pallas", 0)
-    c3, s3 = run("segsum", "segsum", 0)
-    launches = sg.launch_count
-    assert launches == s1["launches"] + s2["launches"] > 0
+    total = dict.fromkeys(KERNELS, 0)
+    runs = {}
+    counts = {}
+    for tag, impl, boots in (("v4", "v4", 8), ("v4_again", "v4", 0),
+                             ("pallas", "pallas", 8), ("segsum", "segsum", 0)):
+        counts[tag], runs[tag] = run(tag, impl, boots)
+        for k, n in runs[tag]["launches"].items():
+            total[k] += n
+    assert all(total[k] > 0 for k in KERNELS), total
     assert not capture.warnings[warn0:], capture.warnings[warn0:]
+    # the first run built the plan and stored it; the second took it from
+    # the plan cache and must still give the same bits
+    assert not runs["v4"]["plan_cache_hit"]
+    assert runs["v4_again"]["plan_cache_hit"]
 
+    c1 = counts["v4"]
     mass_err = abs(c1.sum() - R) / R
     assert mass_err < 1e-5, f"mass off by {mass_err}"
-    assert np.array_equal(c1, c2), "two pallas runs differ"
-    l1 = float(np.abs(c1 - c3).sum() / R)
-    assert l1 < 2e-3, f"pallas vs segsum L1/R = {l1}"
+    assert np.array_equal(c1, counts["v4_again"]), "two v4 runs differ"
+    l1 = {tag: float(np.abs(c1 - counts[tag]).sum() / R)
+          for tag in ("segsum", "pallas")}
+    assert max(l1.values()) < 2e-3, f"v4 vs segsum / pallas L1/R = {l1}"
     import pyarrow.parquet as pq
 
-    reps = pq.read_table(str(tmp / "pallas") + ".infreps.pq")
+    reps = pq.read_table(str(tmp / "v4") + ".infreps.pq")
     reps = np.stack([np.asarray(reps[c]) for c in reps.column_names])
     assert reps.shape == (8, T) and np.isfinite(reps).all()
     rep_mass = float(np.abs(reps.sum(axis=1) - R).max() / R)
     assert rep_mass < 1e-5, f"replicate mass off by {rep_mass}"
 
-    out = dict(R=R, T=T, A=A, dtype="float32", pallas=s1, pallas_again=s2,
-               segsum=s3, launches=launches, mass_rel_err=float(mass_err),
-               l1_over_R_vs_segsum=l1, bit_identical_rerun=True,
+    out = dict(R=R, T=T, A=A, dtype="float32", **runs, launches=total,
+               mass_rel_err=float(mass_err), l1_over_R_vs_segsum=l1["segsum"],
+               l1_over_R_vs_pallas=l1["pallas"], bit_identical_rerun=True,
                replicate_mass_rel_err=rep_mass)
     emit("em_full_width", **out)
-    return out, launches
+    return out, total
 
 
-def phase_cli_e2e(R, T, device, tmp: Path, capture):
-    """Returns (the phase's line, launches of the kernel in the phase)."""
-    bam = tmp / "e2e.bam"
-    t0 = time.time()
-    n_alns = build_e2e_bam(bam, R, T)
-    gen_s = time.time() - t0
-    out = tmp / "cli"
+def run_cli(bam: Path, out: Path, extra, device, capture):
+    """One run of the CLI; returns (argv, counts, reads kept, meta, (impl,
+    iterations, EM seconds), launches per kernel, wall seconds)."""
     argv = ["--alignments", str(bam), "-o", str(out), "--model-coverage",
-            "--write-assignment-probs"]
+            "--write-assignment-probs", *extra]
     n_em, warn0 = len(capture.em), len(capture.warnings)
-    sg.launch_count = 0
+    reset_launch_counts()
     t0 = time.time()
     rc = cli_main(argv)
     torch.cuda.synchronize(device)
     wall = time.time() - t0
-    launches = sg.launch_count
+    launched = launch_counts()
     assert rc == 0
     assert not capture.warnings[warn0:], capture.warnings[warn0:]
     for ext in (".quant", ".ambig_info.tsv", ".meta_info.json", ".prob"):
         assert Path(str(out) + ext).stat().st_size > 0, ext
     counts = read_quant(str(out) + ".quant")
-    assert counts.shape == (T,) and np.isfinite(counts).all()
+    assert np.isfinite(counts).all()
     meta = json.loads(Path(str(out) + ".meta_info.json").read_text())
     kept = int(meta["discard_table"]["valid_best_aln"])
     mass_err = abs(counts.sum() - kept) / kept
     assert mass_err < 1e-5, f"mass {counts.sum()} vs {kept} reads kept"
-    impl, iters, em_s = capture.em[n_em]
-    assert impl == "pallas", f"auto chose {impl}, expected pallas"
-    assert launches == iters + 1, (launches, iters)
+    return argv, counts, kept, meta, capture.em[n_em], launched, wall
 
-    # the kernel against its plain version on this BAM's own gather plan
-    # (another row count and base / hi pattern than the bench CSR's): the
-    # plan is a function of the kept alignments' transcript ids alone
+
+def phase_cli_e2e(R, T, device, tmp: Path, capture):
+    """Returns (the phase's line, launches per kernel in the phase)."""
+    bam = tmp / "e2e.bam"
+    t0 = time.time()
+    n_alns = build_e2e_bam(bam, R, T)
+    gen_s = time.time() - t0
+    # the defaults: cuda, and `auto`, which takes v4 at this size
+    n_auto, n_route = len(capture.auto), len(capture.routing)
+    _, counts, kept, meta, (impl, iters, em_s), launched, wall = run_cli(
+        bam, tmp / "cli", [], device, capture)
+    assert counts.shape == (T,)
+    assert capture.auto[n_auto:] == ["v4"], capture.auto[n_auto:]
+    assert impl == "v4", f"auto chose {impl}, expected v4"
+    assert launched in (v4_launches(iters + 1, True),
+                        v4_launches(iters + 1, False)), (launched, iters)
+    res = dict(
+        R=R, T=T, records=n_alns, reads_kept=kept,
+        native_decoder=native.available(),
+        bam_mb=round(bam.stat().st_size / 2**20, 1),
+        bam_build_s=round(gen_s, 2), wall_s=round(wall, 2),
+        pack_s=round(float(meta["alignment_time"]["seconds"]), 2),
+        em_impl=impl, auto=True, iterations=iters, em_s=em_s,
+        routing_s=capture.routing[n_route], launches=launched,
+        mass_rel_err=float(abs(counts.sum() - kept) / kept),
+    )
+    bam.unlink()
+
+    # an earlier path at a smaller size: `--em-impl pallas`, and the
+    # sorted-gather kernel against its plain version on this BAM's own
+    # gather plan (another row count and base / hi pattern than the bench
+    # CSR's): the plan is a function of the kept alignments' transcript
+    # ids alone
+    small = tmp / "small.bam"
+    build_e2e_bam(small, SMALL_READS, T, seed=1)
+    argv, counts2, kept2, _, (impl2, iters2, em_s2), launched2, wall2 = (
+        run_cli(small, tmp / "cli_pallas", ["--em-impl", "pallas"], device,
+                capture))
+    assert impl2 == "pallas"
+    want = dict.fromkeys(KERNELS, 0)
+    want["sorted_gather"] = iters2 + 1
+    assert launched2 == want, (launched2, want)
     t0 = time.time()
     args = to_args(build_parser().parse_args(argv))
     _, store, _, _ = pack_bam_fast(
-        bam, resolve_filters(args), bin_width=args.bin_width,
+        small, resolve_filters(args), bin_width=args.bin_width,
         threads=max(args.threads, 1),
     )
-    assert store.num_reads == kept
+    assert store.num_reads == kept2
     plan = sg.SortedGatherPlan.build(np.sort(store.txp_id), T + 1,
                                      device=device)
     rng = np.random.default_rng(2)
@@ -520,39 +816,22 @@ def phase_cli_e2e(R, T, device, tmp: Path, capture):
     k1_err = kernel_equals_plain(tab, plan.base, plan.lane, plan.use_hi)
     k1_ms = time_ms(lambda: sg.gather_rows_cuda(
         tab, plan.base, plan.lane, plan.use_hi), device)
-    k1_check_s = time.time() - t0
-    res = dict(
-        R=R, T=T, records=n_alns, reads_kept=kept,
-        native_decoder=native.available(), bam_mb=round(bam.stat().st_size / 2**20, 1),
-        bam_build_s=round(gen_s, 2), wall_s=round(wall, 2),
-        pack_s=round(float(meta["alignment_time"]["seconds"]), 2),
-        em_impl=impl, iterations=iters, em_s=em_s, launches=launches,
-        mass_rel_err=float(mass_err),
+    res["pallas_run"] = dict(
+        R=SMALL_READS, reads_kept=kept2, wall_s=round(wall2, 2),
+        iterations=iters2, em_s=em_s2, launches=launched2,
         k1_plan=dict(n_rows=plan.n_rows, table_rows=plan.table_rows,
                      bit_equal=True, max_abs_err=k1_err, ms=k1_ms,
-                     check_s=round(k1_check_s, 2)),
-    )
+                     check_s=round(time.time() - t0, 2)))
     emit("cli_e2e", **res)
-    return res, launches
+    return res, {k: launched[k] + launched2[k] for k in KERNELS}
 
 
-def phase_em_breakdown(csr, T, device, profile_dir) -> dict:
-    """Where an EM iteration's time goes at full width (f32, `pallas`
-    layout): the m-step alone, and 200 loop iterations with the host
-    reading the stop flag every iteration against never reading it."""
-    from oarfish_tpu_torch.ops.em import em_loop, uniform_init
-    from oarfish_tpu_torch.ops.em_fast import _m_step_fast
-
-    txp_id, w, boundaries, A = csr
-    data, _ = FastEmData.build(
-        txp_id, w, boundaries, T, dtype=torch.float32,
-        use_pallas_gather=True, device=device,
-    )
-    init = uniform_init(data, torch.float32)
-    mult8 = torch.ones((8, data.num_reads), device=device)
-
-    def m_step(p):
-        return _m_step_fast(data, p, None)
+def measure_m_step(tag, m_step, init, device, profile_dir) -> dict:
+    """An m-step alone (ms per call between CUDA events), 200 loop
+    iterations with the host reading the stop flag every iteration
+    against never reading it, and, with `profile_dir`, the m-step's kernel
+    launches and device time by name."""
+    from oarfish_tpu_torch.ops.em import em_loop
 
     def loop(min_iters):
         t0 = time.perf_counter()
@@ -567,13 +846,12 @@ def phase_em_breakdown(csr, T, device, profile_dir) -> dict:
         every.append(loop(0))
     res = dict(
         m_step_ms=time_ms(lambda: m_step(init), device),
-        m_step_8_replicates_ms=time_ms(
-            lambda: _m_step_fast(data, init.expand(8, -1), mult8), device),
         loop_ms_per_iter_never_read=float(np.median(never)),
         loop_ms_per_iter_read_every_iter=float(np.median(every)),
         loop_ms_per_iter_runs=dict(never_read=never, read_every_iter=every),
     )
     if profile_dir is not None:
+        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CPU,
@@ -581,22 +859,52 @@ def phase_em_breakdown(csr, T, device, profile_dir) -> dict:
             for _ in range(20):
                 m_step(init)
             torch.cuda.synchronize(device)
-        from torch.autograd import DeviceType
-
         # kernel rows only: operator rows repeat their kernels' time
         rows = sorted(
             (e for e in prof.key_averages()
              if e.device_type == DeviceType.CUDA and e.device_time_total > 0),
             key=lambda e: -e.device_time_total)
         Path(profile_dir).mkdir(parents=True, exist_ok=True)
-        with open(Path(profile_dir) / "m_step_kernels.json", "w") as fh:
+        path = Path(profile_dir) / f"m_step_kernels_{tag}.json"
+        with open(path, "w") as fh:
             json.dump([dict(name=e.key[:160], calls_per_step=e.count / 20,
                             device_us_per_step=e.device_time_total / 20)
                        for e in rows], fh, indent=1)
-        res["profile"] = str(Path(profile_dir) / "m_step_kernels.json")
+        res["profile"] = str(path)
         res["m_step_launches"] = sum(e.count for e in rows) / 20
         res["m_step_device_ms"] = sum(
             e.device_time_total for e in rows) / 20 / 1e3
+    return res
+
+
+def phase_em_breakdown(csr, T, device, profile_dir) -> dict:
+    """Where an EM iteration's time goes at full width (f32), for the
+    `pallas` layout and for the routed `v4` one, in one process."""
+    from oarfish_tpu_torch.ops.em import uniform_init
+    from oarfish_tpu_torch.ops.em_fast import _m_step_fast
+
+    txp_id, w, boundaries, A = csr
+    data, _ = FastEmData.build(
+        txp_id, w, boundaries, T, dtype=torch.float32,
+        use_pallas_gather=True, device=device,
+    )
+    init = uniform_init(data, torch.float32)
+    mult8 = torch.ones((8, data.num_reads), device=device)
+    res = {"pallas": measure_m_step(
+        "pallas", lambda p: _m_step_fast(data, p, None), init, device,
+        profile_dir)}
+    res["pallas"]["m_step_8_replicates_ms"] = time_ms(
+        lambda: _m_step_fast(data, init.expand(8, -1), mult8), device)
+    del data
+
+    v4, _ = em_v4.EmV4Data.build(txp_id, w, boundaries, T, device=device)
+    ext = torch.nn.functional.pad(init, (0, v4.t_space - T))
+    res["v4"] = measure_m_step(
+        "v4", em_v4.make_m_step(v4, None), ext, device, profile_dir)
+    mult1 = torch.ones(v4.row_space_r, device=device)
+    replicate_step = em_v4.make_m_step(v4, mult1)
+    res["v4"]["m_step_replicate_ms"] = time_ms(
+        lambda: replicate_step(ext), device)
     emit("em_breakdown", **res)
     return res
 
@@ -604,10 +912,11 @@ def phase_em_breakdown(csr, T, device, profile_dir) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--breakdown", action="store_true",
-                    help="also time the m-step alone and the loop with and "
-                    "without the per-iteration read of the stop flag")
+                    help="also time the pallas and the v4 m-step alone and "
+                    "the loop with and without the per-iteration read of "
+                    "the stop flag")
     ap.add_argument("--profile-dir", default=None,
-                    help="with --breakdown: write the m-step's kernel times "
+                    help="with --breakdown: write the m-steps' kernel times "
                     "by name (torch.profiler) into this directory")
     ns = ap.parse_args(argv)
 
@@ -616,10 +925,6 @@ def main(argv=None) -> int:
         return 1
     device = torch.device("cuda", 0)
     R, T = FULL_READS, FULL_TXPS
-    e2e_R = R
-    if not native.available():
-        # the pure-Python BAM reader manages roughly 10^4 reads/s
-        e2e_R = min(R, 200_000)
 
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
@@ -628,40 +933,76 @@ def main(argv=None) -> int:
 
     t_start = time.time()
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    # the plan cache is on, as for a user, but kept inside this run
+    os.environ["OARFISH_PLAN_CACHE"] = "1"
+    os.environ["OARFISH_PLAN_CACHE_DIR"] = str(tmp / "plans")
     try:
         smi = phase_env()
         phase_kernels()
         csr = make_csr(R, T, seed=0)
         k1 = phase_k1_vs_plain(csr, T, device)
+        k234 = phase_k2_k3_k4_vs_plain(csr, R, T, device)
 
-        # the main path, twice: each phase sets the launch count to 0
-        # before it drives the port and reads it before any comparison
-        _, launches_em = phase_em_full_width(csr, R, T, device, tmp, capture)
-        cli, launches_cli = phase_cli_e2e(e2e_R, T, device, tmp, capture)
+        # the main paths: each run sets the launch counts to 0 before it
+        # drives the port and reads them before any comparison
+        _, launches_em = phase_em_full_width(
+            csr, R, T, device, tmp, capture,
+            fused=k234["plan"]["fused_middle"])
+        cli, launches_cli = phase_cli_e2e(R, T, device, tmp, capture)
         if ns.breakdown:
             phase_em_breakdown(csr, T, device, ns.profile_dir)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    if launches_em == 0 or launches_cli == 0:
-        raise AssertionError("a main path never launched sorted_gather")
-    print(json.dumps({"kernels": [{
-        "name": "sorted_gather",
-        "route": "cuda",
-        "source": "oarfish_tpu_torch/csrc/sorted_gather.cu",
-        "replaces": f"{JAX_PACKAGE}/ops/gather_pallas.py:156",
-        "launches": launches_em + launches_cli,
-        "launches_by_path": {"em_full_width": launches_em,
-                             "cli_e2e": launches_cli},
-        "max_abs_err": max(k1["max_abs_err"], cli["k1_plan"]["max_abs_err"]),
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"],
-        "library_ms": k1["library_ms"],
-        "ms_8_replicates": k1["ms_b8"],
-        "bound_ms_8_replicates": k1["bound_ms_b8"],
-    }]}), flush=True)
+    def entry(name, measured, **extra):
+        module, source, replaces = KERNELS[name]
+        total = launches_em[name] + launches_cli[name]
+        if launches_em[name] == 0 or launches_cli[name] == 0:
+            raise AssertionError(f"a main path never launched {name}")
+        return {
+            "name": name, "route": "cuda",
+            "source": f"oarfish_tpu_torch/csrc/{source}",
+            "replaces": f"{JAX_PACKAGE}/{replaces}",
+            "launches": total,
+            "launches_by_path": {"em_full_width": launches_em[name],
+                                 "cli_e2e": launches_cli[name]},
+            **{k: measured[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by", "library_ms")},
+            **extra,
+        }
+
+    def also(measured, tag):
+        return {f"{k}_{tag}": measured[k]
+                for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+
+    k2, k3, k4 = (k234[k] for k in ("tile_permute", "route_stage",
+                                    "route_middle"))
+    reduce_tag = next(t for t in k3 if t.startswith("reduce"))
+    kernels = [
+        entry("sorted_gather",
+              dict(k1, max_abs_err=max(
+                  k1["max_abs_err"],
+                  cli["pallas_run"]["k1_plan"]["max_abs_err"])),
+              ms_8_replicates=k1["ms_b8"],
+              bound_ms_8_replicates=k1["bound_ms_b8"]),
+        entry("tile_permute",
+              dict(k2["t_in"], max_abs_err=max(
+                  v["max_abs_err"] for v in k2.values())),
+              measured_on="t_in", **also(k2["t_out"], "t_out")),
+        entry("route_stage",
+              dict(k3["expand_y1_mul"], max_abs_err=max(
+                  v["max_abs_err"] for v in k3.values())),
+              measured_on="expand_y1 with mul",
+              **also(k3[reduce_tag], reduce_tag)),
+    ]
+    if k4:  # a plan without a level table never launches the fused middle
+        kernels.append(entry(
+            "route_middle",
+            dict(k4["point"], max_abs_err=max(
+                v["max_abs_err"] for v in k4.values())),
+            measured_on="point estimate (no mult)",
+            **also(k4["replicate"], "replicate")))
+    print(json.dumps({"kernels": kernels}), flush=True)
     emit("total", seconds=round(time.time() - t_start, 1))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,99 @@
+// One stage of a GlobalRoute gather network, over all chunks:
+//   out[j, ro, c] = mask[j, ro, c] ? in_j[ri, li] * mul[j, ri, li] : 0
+// with (ri, li) found through the stage's tables (route_common.cuh) and
+// in_j chunk j's input tile, [R_in, 128] -> [R_out, 128] per chunk.
+//
+// Replaces the Pallas kernel of ops/static_permute.py of the JAX package
+// (`_stage_apply` + `_make_route_kernel` / `_run_route_stage`). That
+// kernel builds the stage from whole-tile lane gathers, 128x128 transposes
+// and an H_in x H_out unrolled gather-and-select, widens the int8 tables
+// before comparing, and reads the strided quota view through a 4-D block
+// spec; all of that is what its target can lower. Here one thread makes
+// the three dependent table lookups of one output element and loads its
+// value. The optional factor `mul` is taken at the source element, before
+// any gather, as the JAX kernel multiplies the input tile. The quota
+// exchange between the expand and the reduce stage is index arithmetic
+// (`tile_offset` with Q > 0).
+//
+// Bound: bytes. Per output element 4 table bytes (5 with a mask) and one
+// value written; per input element one value (two with `mul`) read. No
+// arithmetic beyond the one product. The r2 / mask reads and the output
+// write are coalesced; the src / row / r1 lookups and the value load are
+// scattered within one chunk's tables and tile (at most a few megabytes),
+// which the L2 cache holds while the chunk's blocks run.
+//
+// Plain C interface for ctypes; the wrapper
+// (oarfish_tpu_torch/ops/route_stage.py) allocates the output, checks
+// shapes and passes the current stream. Each entry point returns
+// cudaGetLastError() of its launch. Built without fused multiply-add.
+
+#include "route_common.cuh"
+
+namespace {
+
+constexpr int THREADS = 256;
+
+template <typename T>
+__global__ void route_stage_kernel(
+    const T* __restrict__ x,          // input tiles (see tile_offset)
+    const T* __restrict__ mul,        // [n_chunks * R_in, 128] or nullptr
+    route::StageTables t,
+    const int8_t* __restrict__ mask,  // [n_chunks, R_out, 128] or nullptr
+    T* __restrict__ out,              // [n_chunks * R_out, 128]
+    int n_chunks, int Q)
+{
+    const int64_t per_chunk = (int64_t)t.R_out * route::LANES;
+    const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (idx >= per_chunk * n_chunks) return;
+    const int j = (int)(idx / per_chunk);
+    const int rem = (int)(idx - j * per_chunk);
+    T v = T(0);
+    int ri, li;
+    if ((mask == nullptr || mask[idx] != 0) &&
+        route::stage_source(t, j, rem >> 7, rem & 127, ri, li)) {
+        v = x[route::tile_offset(j, ri, li, t.R_in, Q, n_chunks)];
+        if (mul != nullptr)
+            v = v * mul[((int64_t)j * t.R_in + ri) * route::LANES + li];
+    }
+    out[idx] = v;
+}
+
+template <typename T>
+int launch(const void* x, const void* mul, const void* r1, const void* src,
+           const void* row, const void* r2, const void* mask, void* out,
+           int n_chunks, int R_in, int R_out, int Q, void* stream)
+{
+    const int64_t n_out = (int64_t)n_chunks * R_out * route::LANES;
+    if (n_out == 0) return (int)cudaSuccess;
+    route::StageTables t{(const int8_t*)r1, (const int8_t*)src,
+                         (const int8_t*)row, (const int8_t*)r2, R_in, R_out};
+    const unsigned grid = (unsigned)((n_out + THREADS - 1) / THREADS);
+    route_stage_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        (const T*)x, (const T*)mul, t, (const int8_t*)mask, (T*)out,
+        n_chunks, Q);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+int route_stage_f32(const void* x, const void* mul, const void* r1,
+                    const void* src, const void* row, const void* r2,
+                    const void* mask, void* out, int n_chunks, int R_in,
+                    int R_out, int Q, void* stream)
+{
+    return launch<float>(x, mul, r1, src, row, r2, mask, out, n_chunks, R_in,
+                         R_out, Q, stream);
+}
+
+int route_stage_f64(const void* x, const void* mul, const void* r1,
+                    const void* src, const void* row, const void* r2,
+                    const void* mask, void* out, int n_chunks, int R_in,
+                    int R_out, int Q, void* stream)
+{
+    return launch<double>(x, mul, r1, src, row, r2, mask, out, n_chunks, R_in,
+                          R_out, Q, stream);
+}
+
+}  // extern "C"

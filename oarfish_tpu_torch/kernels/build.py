@@ -34,10 +34,15 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 CUDA_SRC_DIR = PACKAGE_DIR / "csrc"
 HOST_SRC_DIR = PACKAGE_DIR.parent / "csrc"
 
+# no fused multiply-add and no fast-math: the kernels are held bit for bit
+# against their plain PyTorch versions
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
 )
+
+CUDA_KERNELS = ("sorted_gather", "tile_permute", "route_stage",
+                "route_middle")
 
 # name -> seconds the build took in this process (0.0 = found up to date)
 build_seconds: Dict[str, float] = {}
@@ -46,8 +51,14 @@ _cuda_libs: Dict[str, ctypes.CDLL] = {}
 
 
 def _up_to_date(lib: Path, src: Path) -> bool:
+    """The library is newer than its source and, for a kernel, than every
+    header beside it."""
+    deps = [src]
+    if src.suffix == ".cu":
+        deps += list(src.parent.glob("*.cuh"))
     try:
-        return lib.stat().st_mtime >= src.stat().st_mtime
+        built = lib.stat().st_mtime
+        return all(built >= d.stat().st_mtime for d in deps)
     except OSError:
         return False
 
@@ -109,6 +120,16 @@ def cuda_library(name: str) -> ctypes.CDLL:
         build_seconds.setdefault(name, 0.0)
     _cuda_libs[name] = ctypes.CDLL(str(lib))
     return _cuda_libs[name]
+
+
+def build_cuda_libraries(names: Sequence[str] = CUDA_KERNELS) -> None:
+    """Build (if needed) and load several kernels at once: one `nvcc` per
+    source, all started together. Raises what `cuda_library` raises."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max(len(names), 1)) as pool:
+        for _lib in pool.map(cuda_library, names):
+            pass
 
 
 def host_library(

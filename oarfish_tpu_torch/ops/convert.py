@@ -1,23 +1,27 @@
 """State carried across from the JAX package.
 
 The fields of the JAX package's `EmData` (the JAX package's `ops/em.py`),
-`FastEmData` (the JAX package's `ops/em_fast.py`) and `SortedGatherPlan`
-(the JAX package's `ops/gather_pallas.py`) come in as NumPy arrays plus the meta
-integers and go out as this package's dataclasses on a given device, so
-both packages can run on identical tables. This package's own `build`
+`FastEmData` (the JAX package's `ops/em_fast.py`), `SortedGatherPlan`
+(the JAX package's `ops/gather_pallas.py`) and `EmV4Data` with its
+`GlobalRoutePlan`s and `BatchTilePermute`s (the JAX package's
+`ops/em_v4.py`, `ops/static_permute.py`) come in as NumPy arrays plus the
+meta integers and go out as this package's dataclasses on a given device,
+so both packages can run on identical tables. This package's own `build`
 functions produce the same arrays.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .em import EmData, csr_offsets
 from .em_fast import FastEmData, offset_tables
+from .em_v4 import EmV4Data, row_sources
 from .sorted_gather import SortedGatherPlan
+from .static_permute import ROUTE_TABLES, BatchTilePermute, GlobalRoutePlan
 
 
 def _tensor(a, device, dtype=None) -> torch.Tensor:
@@ -103,4 +107,67 @@ def fast_em_data_from_numpy(
         g_rows=int(g_rows),
         g_table_rows=int(g_table_rows),
         use_pallas_gather=has_plan,
+    )
+
+
+ROUTE_META = ("n_in", "n_out", "n_src", "n_dst", "Q", "R1", "R3",
+              "chunk_rows")
+V4_META = ("read_shapes", "read_starts", "n_slots_r", "row_space_r",
+           "small_shapes", "small_starts", "row_space_s", "big_rows_pad",
+           "n_big", "n_slots_t", "t_space", "num_reads", "num_txps")
+
+
+def route_plan_from_numpy(fields: Mapping, device) -> GlobalRoutePlan:
+    """`fields` holds the nine int8 tables under the names of
+    `ROUTE_TABLES` (`s1_src` may be None) and the integers of
+    `ROUTE_META`."""
+    tables = {
+        name: None if fields[name] is None
+        else _tensor(fields[name], device, torch.int8)
+        for name in ROUTE_TABLES
+    }
+    return GlobalRoutePlan(
+        **tables, **{k: int(fields[k]) for k in ROUTE_META})
+
+
+def tile_permute_from_numpy(fields: Mapping, device) -> BatchTilePermute:
+    """`fields` holds `r1`, `r2`, `src`, `lane` (int8) and `rows`,
+    `n_tiles`."""
+    return BatchTilePermute(
+        **{k: _tensor(fields[k], device, torch.int8)
+           for k in ("r1", "r2", "src", "lane")},
+        rows=int(fields["rows"]), n_tiles=int(fields["n_tiles"]),
+    )
+
+
+def v4_data_from_jax(
+    w_txp, p_a: Mapping, p_b: Mapping, t_in: Mapping, t_out: Mapping,
+    big_row_of_txp, big_row_offsets, seg_id: Optional[np.ndarray],
+    meta: Mapping, dtype: torch.dtype, device,
+) -> EmV4Data:
+    """The routed EM's device state from the fields of the JAX package's
+    `EmV4Data`: `p_a` / `p_b` as `route_plan_from_numpy` takes them, `t_in`
+    / `t_out` as `tile_permute_from_numpy` does, `meta` the static
+    integers and tuples of `V4_META`."""
+    def shapes(v):
+        return tuple(tuple(int(x) for x in s) for s in v)
+
+    static = {k: meta[k] for k in V4_META}
+    for k in ("read_shapes", "small_shapes"):
+        static[k] = shapes(static[k])
+    for k in ("read_starts", "small_starts"):
+        static[k] = tuple(int(x) for x in static[k])
+    route_a = route_plan_from_numpy(p_a, device)
+    return EmV4Data(
+        w_txp=_tensor(w_txp, device, dtype),
+        p_a=route_a,
+        p_b=route_plan_from_numpy(p_b, device),
+        **row_sources(static, route_a, device),
+        t_in=tile_permute_from_numpy(t_in, device),
+        t_out=tile_permute_from_numpy(t_out, device),
+        big_row_of_txp=_tensor(big_row_of_txp, device, torch.int64),
+        big_row_offsets=_tensor(big_row_offsets, device, torch.int64),
+        seg_id=(None if seg_id is None
+                else _tensor(seg_id, device, torch.int8)),
+        **static,
     )

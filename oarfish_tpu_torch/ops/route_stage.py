@@ -1,0 +1,199 @@
+"""One stage of a `GlobalRoute` gather network over all chunks.
+
+Counterpart of `_stage_apply` / `_run_route_stage` in the JAX package's
+`ops/static_permute.py`. Per chunk j the stage maps an input tile
+`[R_in, 128]` to an output tile `[R_out, 128]` through four int8 tables:
+
+    c2 = r2[j, ro, c]
+    ri = src[j, ro // 128, c2, ro % 128] * 128 + row[j, ro // 128, c2, ro % 128]
+    out[j, ro, c] = x_j[ri, r1[j, ri, c2]] * mul_j[ri, r1[j, ri, c2]]
+
+(`src` is absent when the input is one block of 128 rows; `mul` is
+optional and taken at the source element), and 0 where `mask[j, ro, c]`
+is 0. The values come either as `[n_chunks * R_in, 128]`, tile after tile,
+or as the 4-D view `[n_src, n_chunks, Q/128, 128]` of the quota tensor
+that the expand stage wrote: chunk j's tile is then `x[:, j]` flattened,
+and the exchange between the two stages needs no transpose.
+
+On a CUDA tensor `route_stage` launches the hand-written kernel
+`csrc/route_stage.cu` (built at first use by `kernels/build.py`) or
+raises; `route_stage_reference` is the same function with
+`torch.take_along_dim`, used for CPU tensors and for comparisons.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+LANES = 128
+
+# number of kernel launches made by `route_stage` in this process
+launch_count = 0
+
+KERNEL_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def check_operand(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+    """Raise unless `t` is a contiguous tensor of that dtype and shape on
+    that device."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, the values on {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check_stage_tables(tag, r1, src, row, r2, n, R_in, R_out, device) -> None:
+    i8 = torch.int8
+    H_out = R_out // LANES
+    check_operand(f"{tag}r1", r1, i8, (n, R_in, LANES), device)
+    if R_in > LANES:
+        if src is None:
+            raise ValueError(f"{tag}src is needed for R_in = {R_in} > {LANES}")
+        check_operand(f"{tag}src", src, i8, (n, H_out, LANES, LANES), device)
+    check_operand(f"{tag}row", row, i8, (n, H_out, LANES, LANES), device)
+    check_operand(f"{tag}r2", r2, i8, (n, R_out, LANES), device)
+
+
+def kernel_function(library: str, dtype: torch.dtype, argtypes):
+    """The `<library>_f32` / `_f64` entry point of `csrc/<library>.cu`,
+    built at first use, with its ctypes signature set."""
+    from ..kernels.build import cuda_library
+
+    fn = getattr(cuda_library(library), f"{library}_{KERNEL_SUFFIX[dtype]}")
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def input_tiles(x: torch.Tensor, n_chunks: int, R_in: int) -> torch.Tensor:
+    """`[n_chunks, R_in, 128]` tiles of either value layout."""
+    if x.dim() == 4:
+        return x.permute(1, 0, 2, 3).reshape(n_chunks, R_in, LANES)
+    return x.reshape(n_chunks, R_in, LANES)
+
+
+def stage_apply_reference(
+    tiles: torch.Tensor, r1: torch.Tensor, src: Optional[torch.Tensor],
+    row: torch.Tensor, r2: torch.Tensor, mask: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """The stage on `[n, R_in, 128]` tiles -> `[n, R_out, 128]`: lane
+    gather by `r1`, row gather per lane by `src * 128 + row`, lane gather by
+    `r2`, zero mask."""
+    n, R_in, _ = tiles.shape
+    R_out = r2.shape[1]
+    s1 = torch.take_along_dim(tiles, r1.long(), dim=2)
+    ri = row.long()
+    if src is not None and R_in > LANES:
+        blk = src.long()
+        known = (blk >= 0) & (blk < R_in // LANES)
+        ri = ri + blk.clamp(0, R_in // LANES - 1) * LANES
+    else:
+        known = None
+    # tables are stored [block of ro][c2][ro % 128]
+    ri = ri.permute(0, 1, 3, 2).reshape(n, R_out, LANES)
+    q = torch.take_along_dim(s1, ri, dim=1)
+    if known is not None:
+        q = torch.where(known.permute(0, 1, 3, 2).reshape(n, R_out, LANES),
+                        q, torch.zeros_like(q))
+    out = torch.take_along_dim(q, r2.long(), dim=2)
+    if mask is not None:
+        out = torch.where(mask != 0, out, torch.zeros_like(out))
+    return out
+
+
+def route_stage_reference(
+    x: torch.Tensor, r1: torch.Tensor, src: Optional[torch.Tensor],
+    row: torch.Tensor, r2: torch.Tensor, mask: Optional[torch.Tensor],
+    n_chunks: int, R_in: int, R_out: int,
+    mul: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain torch version of the kernel: `[n_chunks * R_out, 128]`."""
+    tiles = input_tiles(x, n_chunks, R_in)
+    if mul is not None:
+        tiles = tiles * mul.reshape(n_chunks, R_in, LANES)
+    out = stage_apply_reference(tiles, r1, src, row, r2, mask)
+    return out.reshape(n_chunks * R_out, LANES)
+
+
+def check_values(x: torch.Tensor, n_chunks: int, R_in: int) -> int:
+    """Checks the value operand of a stage kernel; returns 0 for
+    tile-after-tile values and Q for the 4-D quota view."""
+    if not x.is_cuda:
+        raise ValueError("the kernel needs a CUDA tensor")
+    if x.dtype not in KERNEL_SUFFIX:
+        raise TypeError(f"no kernel for {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("values must be contiguous")
+    if n_chunks * max(R_in, 1) * LANES >= 2**31:
+        raise ValueError("a stage of 2^31 elements or more is not supported")
+    if x.dim() == 2:
+        if tuple(x.shape) != (n_chunks * R_in, LANES):
+            raise ValueError(
+                f"values must be [{n_chunks * R_in}, {LANES}], got "
+                f"{tuple(x.shape)}")
+        return 0
+    if (x.dim() != 4 or x.shape[1] != n_chunks or x.shape[3] != LANES
+            or x.shape[0] * x.shape[2] != R_in):
+        raise ValueError(
+            f"values must be [n_src, {n_chunks}, Q/128, {LANES}] with "
+            f"n_src * Q/128 = {R_in}, got {tuple(x.shape)}")
+    return int(x.shape[2]) * LANES
+
+
+def route_stage_cuda(
+    x: torch.Tensor, r1: torch.Tensor, src: Optional[torch.Tensor],
+    row: torch.Tensor, r2: torch.Tensor, mask: Optional[torch.Tensor],
+    n_chunks: int, R_in: int, R_out: int,
+    mul: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Launch the CUDA kernel. Raises on anything it does not take and on
+    a refused launch."""
+    global launch_count
+    Q = check_values(x, n_chunks, R_in)
+    dev = x.device
+    check_stage_tables("", r1, src, row, r2, n_chunks, R_in, R_out, dev)
+    if mask is not None:
+        check_operand("mask", mask, torch.int8, (n_chunks, R_out, LANES), dev)
+    if mul is not None:
+        if Q:
+            raise ValueError("mul goes with tile-after-tile values only")
+        check_operand("mul", mul, x.dtype, (n_chunks * R_in, LANES), dev)
+    out = torch.empty((n_chunks * R_out, LANES), dtype=x.dtype, device=dev)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = kernel_function("route_stage", x.dtype,
+                         [p, p, p, p, p, p, p, p, i, i, i, i, p])
+    with torch.cuda.device(dev):
+        err = fn(
+            x.data_ptr(), ptr(mul), r1.data_ptr(),
+            ptr(src) if R_in > LANES else None, row.data_ptr(),
+            r2.data_ptr(), ptr(mask), out.data_ptr(), n_chunks, R_in, R_out,
+            Q, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"route_stage kernel launch failed: CUDA error {err}")
+    launch_count += 1
+    return out
+
+
+def route_stage(
+    x: torch.Tensor, r1: torch.Tensor, src: Optional[torch.Tensor],
+    row: torch.Tensor, r2: torch.Tensor, mask: Optional[torch.Tensor],
+    n_chunks: int, R_in: int, R_out: int,
+    mul: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The kernel for CUDA values, the plain version for CPU values."""
+    fn = route_stage_cuda if x.is_cuda else route_stage_reference
+    return fn(x, r1, src, row, r2, mask, n_chunks, R_in, R_out, mul=mul)

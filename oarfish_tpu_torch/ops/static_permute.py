@@ -1,0 +1,645 @@
+"""Static permutations and gather networks applied on the device.
+
+Counterpart of the JAX package's `ops/static_permute.py`. The host halves
+(`DeviceTilePlan`, `route_maxflow`, `select_route_geometry`, `GlobalRoute`
+and `build_route_pair(_async)`) are that module's, so both packages make
+identical tables; the device halves (`BatchTilePermute`,
+`GlobalRoutePlan`) are plain classes holding int8 torch tensors on one
+device and calling the kernels of `tile_permute.py` and `route_stage.py`.
+
+`DeviceTilePlan` routes any fixed permutation of a `[R,128]` tile through
+the three-stage decomposition of `permute_plan.py`: a lane gather per row,
+a row gather per lane stored per destination 128-row block (source block
+id and source row, int8: 2 bytes of routing per element), and a second
+lane gather.
+
+`GlobalRoute` is a rectangular gather network over arbitrary-length
+arrays: `out[out_idx[k]] = x[in_idx[k]]` for a static partial injective
+map, all other outputs ZERO. The map only covers the real elements,
+quota-pad garbage is never read back, and output pads are zeroed by a
+static mask. Per chunk:
+
+  stage 1 (expand, [CR,128] -> [R1,128]): lane shuffle into channel
+    columns, a column-stage gather delivering each channel to its quota
+    row, and a lane shuffle to the final quota lane;
+  the exchange of the [n_src, n_dst, Q] quota tensor between chunks;
+  stage 3 (reduce, [R3,128] -> [CR,128]): mirrored, with an output
+    zero-mask.
+
+Channel assignments are two independent bipartite edge colorings per
+chunk ((input row, quota row) and (quota row, output row)), always
+128-colorable (Konig); irregular degrees are regularized with dummy
+edges before coloring.
+
+Not ported: `GlobalPermute`, `balanced_pad_routing` and `spread_roundrobin`
+(used by the v3 iteration only), the in-kernel replicate axis
+(`expand_y1_batch`, `reduce_strided_batch`), and `_chunks_per_program`,
+which sizes grid programs for another memory hierarchy.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+import time
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .permute_plan import (
+    LANES,
+    TilePermutePlan,
+    edge_color_batch,
+    route_tables_native,
+    route_tables_pair_native,
+)
+from .route_stage import route_stage
+from .tile_permute import tile_permute
+
+
+@dataclass(frozen=True)
+class DeviceTilePlan:
+    """Compact static routing for one [R,128] tile (2-3 B/element)."""
+
+    r1: np.ndarray  # [R,128] i8: stage-1 lane gather
+    r2: np.ndarray  # [R,128] i8: stage-3 lane gather
+    col_src: np.ndarray  # [H,128,128] i8: source block per (dst blk, c, r')
+    col_lane: np.ndarray  # [H,128,128] i8: source row within block
+    rows: int
+
+    @staticmethod
+    def build(perm: np.ndarray, rows: int) -> "DeviceTilePlan":
+        base = TilePermutePlan.build(perm, rows)
+        R = rows
+        H = R // LANES
+        assert R % LANES == 0 and H <= 127
+        src_row = base.col_perm  # [R,128]: source row feeding (r, c)
+        col_src = np.zeros((H, LANES, LANES), dtype=np.int8)
+        col_lane = np.zeros((H, LANES, LANES), dtype=np.int8)
+        for hd in range(H):
+            rs = src_row[hd * LANES : (hd + 1) * LANES, :]  # [r'_d, c]
+            col_src[hd] = (rs // LANES).astype(np.int8).T  # [c, r'_d]
+            col_lane[hd] = (rs % LANES).astype(np.int8).T
+        return DeviceTilePlan(
+            r1=base.r1.astype(np.int8),
+            r2=base.r2.astype(np.int8),
+            col_src=col_src,
+            col_lane=col_lane,
+            rows=R,
+        )
+
+    def apply_numpy(self, x: np.ndarray) -> np.ndarray:
+        R, H = self.rows, self.rows // LANES
+        t = x.reshape(R, LANES)
+        s1 = np.take_along_axis(t, self.r1.astype(np.int64), axis=1)
+        blocks = [s1[h * LANES : (h + 1) * LANES].T for h in range(H)]
+        out_blocks = []
+        for hd in range(H):
+            acc = np.zeros((LANES, LANES), dtype=t.dtype)
+            lane = self.col_lane[hd].astype(np.int64)
+            for hs in range(H):
+                g = np.take_along_axis(blocks[hs], lane, 1)
+                acc = np.where(self.col_src[hd] == hs, g, acc)
+            out_blocks.append(acc.T)
+        s2 = np.concatenate(out_blocks, axis=0)
+        s3 = np.take_along_axis(s2, self.r2.astype(np.int64), axis=1)
+        return s3.reshape(-1)
+
+
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    # np.ascontiguousarray copies what is not writable and contiguous
+    # (arrays handed over by another framework are read-only)
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:
+        a = a.copy()
+    return torch.from_numpy(a).to(device)
+
+
+@dataclass(frozen=True)
+class BatchTilePermute:
+    """A batch of per-tile static permutations in one kernel launch."""
+
+    r1: torch.Tensor  # [n_tiles, R, 128] i8
+    r2: torch.Tensor  # [n_tiles, R, 128] i8
+    src: torch.Tensor  # [n_tiles, H, 128, 128] i8
+    lane: torch.Tensor  # [n_tiles, H, 128, 128] i8
+    rows: int
+    n_tiles: int
+
+    @staticmethod
+    def build(plans: List[DeviceTilePlan], device=None) -> "BatchTilePermute":
+        """`device=None` is the package default (`cuda`; raises without a
+        card), `"cpu"` is the host on request."""
+        device = resolve_device(device)
+        return BatchTilePermute(
+            r1=_to_device(np.stack([p.r1 for p in plans]), device),
+            r2=_to_device(np.stack([p.r2 for p in plans]), device),
+            src=_to_device(np.stack([p.col_src for p in plans]), device),
+            lane=_to_device(np.stack([p.col_lane for p in plans]), device),
+            rows=plans[0].rows,
+            n_tiles=len(plans),
+        )
+
+    @property
+    def device(self) -> torch.device:
+        return self.r1.device
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        x2 = x.reshape(self.n_tiles * self.rows, LANES)
+        out = tile_permute(
+            x2, self.r1, self.r2, self.src, self.lane, self.rows, self.n_tiles
+        )
+        return out.reshape(-1)
+
+
+# ---------------------------------------------------------------------------
+# GlobalRoute: rectangular gather networks over arbitrary-length arrays
+# ---------------------------------------------------------------------------
+
+CH = 128 * LANES  # elements per chunk of 128 rows (16384)
+
+
+def _roundup(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def route_maxflow(out_idx: np.ndarray, in_idx: np.ndarray,
+                  n_pad: int, chunk: int = CH,
+                  n_pad_out: Optional[int] = None) -> int:
+    """Max per-(src,dst)-chunk flow of the partial map: the quota Q a
+    GlobalRoute needs. `n_pad_out` sizes the dst space when it differs
+    from the src space (rectangular routes)."""
+    n_src = n_pad // chunk
+    n_dst = (n_pad if n_pad_out is None else n_pad_out) // chunk
+    from .balance import flows2d
+
+    flows = flows2d(in_idx, out_idx, chunk, n_src, n_dst)
+    if flows is None:
+        flows = np.zeros((n_src, n_dst), dtype=np.int64)
+        np.add.at(
+            flows,
+            (np.asarray(in_idx) // chunk, np.asarray(out_idx) // chunk),
+            1,
+        )
+    return max(int(flows.max()), 1)
+
+
+def select_route_geometry(n_ch: int, maxflow: int,
+                          q128: bool = False) -> Tuple[int, int]:
+    """(chunk-pad, Q) selection: require n_chunks * Q % 16384 == 0 on
+    BOTH sides so the quota exchange is a pure reshape/transpose/reshape
+    (no slice, no zero-pad). Padding the chunk count up legalizes finer Q
+    granularity; minimize grid area n_pad*Q, tie-broken toward fewer
+    chunks.
+
+    With `q128` the quota is additionally rounded to a multiple of 128
+    (whole lane tiles): stage 3 and the fused middle then read their
+    dst-chunk column slab straight out of the src-major quota tensor
+    (`reduce_strided`). Costs quota area; `em_v4.route_config` applies the
+    JAX package's break-even rule."""
+    best = None
+    for gran in (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024):
+        npd = _roundup(n_ch, gran)
+        q_step = (LANES * LANES) // math.gcd(LANES * LANES, npd)
+        if q128:
+            q_step = q_step * LANES // math.gcd(q_step, LANES)
+        q = _roundup(maxflow, q_step)
+        if best is None or (npd * q, npd) < (best[0], best[1]):
+            best = (npd * q, npd, q)
+    _, npd, Q = best
+    return npd, Q
+
+
+ROUTE_TABLES = ("s1_r1", "s1_src", "s1_row", "s1_r2", "s3_r1", "s3_src",
+                "s3_row", "s3_r2", "s3_mask")
+
+
+def tables_to_device(
+    tables: Sequence[Optional[np.ndarray]], device: torch.device,
+    slab: Optional[torch.Tensor] = None,
+) -> List[Optional[torch.Tensor]]:
+    """Ship one route's nine host int8 tables (None entries preserved).
+    With `slab`, the contiguous (pinned, on a CUDA run) buffer the tables
+    were carved from in order, the route goes over in ONE copy and the
+    tables are views of it on the device."""
+    if slab is None:
+        return [None if t is None else _to_device(t, device) for t in tables]
+    big = slab.to(device)
+    out, off = [], 0
+    for t in tables:
+        if t is None:
+            out.append(None)
+        else:
+            n = int(t.size)
+            out.append(big[off:off + n].reshape(t.shape))
+            off += n
+    return out
+
+
+@dataclass(frozen=True)
+class GlobalRoutePlan:
+    s1_r1: torch.Tensor  # [n_src, CR, 128] i8
+    s1_src: Optional[torch.Tensor]  # [n_src, H_o, 128, 128] i8 (None: CR=128)
+    s1_row: torch.Tensor  # [n_src, H_o, 128, 128] i8
+    s1_r2: torch.Tensor  # [n_src, R1, 128] i8
+    s3_r1: torch.Tensor  # [n_dst, R3, 128] i8
+    s3_src: Optional[torch.Tensor]  # [n_dst, CR/128, 128, 128] i8
+    s3_row: torch.Tensor  # [n_dst, CR/128, 128, 128] i8
+    s3_r2: torch.Tensor  # [n_dst, CR, 128] i8
+    s3_mask: torch.Tensor  # [n_dst, CR, 128] i8
+    n_in: int
+    n_out: int
+    n_src: int
+    n_dst: int
+    Q: int
+    R1: int
+    R3: int
+    chunk_rows: int  # CR: 128-lane rows per chunk (CR*128 elements)
+
+    @property
+    def device(self) -> torch.device:
+        return self.s1_r1.device
+
+    def tables(self) -> Tuple[Optional[torch.Tensor], ...]:
+        return tuple(getattr(self, name) for name in ROUTE_TABLES)
+
+    def _pad(self, v: torch.Tensor) -> torch.Tensor:
+        npad = self.n_src * self.chunk_rows * LANES
+        if v.shape[0] == npad:
+            return v
+        if v.shape[0] > npad:
+            return v[:npad]
+        return torch.nn.functional.pad(v, (0, npad - v.shape[0]))
+
+    def expand_y1(self, x: torch.Tensor,
+                  mul: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Stage 1 only: chunk space -> PRE-exchange quota tensor
+        [n_src * R1, 128] (src-chunk major). `mul` multiplies `x`
+        elementwise inside the kernel."""
+        n_src, CR = self.n_src, self.chunk_rows
+        x_pad = self._pad(x).reshape(n_src * CR, LANES)
+        mul_pad = None if mul is None else self._pad(mul).reshape(
+            n_src * CR, LANES
+        )
+        return route_stage(
+            x_pad, self.s1_r1, self.s1_src, self.s1_row, self.s1_r2,
+            None, n_src, CR, self.R1, mul=mul_pad,
+        )
+
+    def expand(self, x: torch.Tensor,
+               mul: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Stage 1 + quota exchange: chunk space -> post-transpose quota
+        tensor [n_dst * R3, 128] (dst-chunk major). The chunk counts are
+        padded so n_dst*Q == R1*128 and n_src*Q == R3*128 EXACTLY: the
+        all-to-all is one reshape/transpose/reshape."""
+        n_src, n_dst, Q = self.n_src, self.n_dst, self.Q
+        y1 = self.expand_y1(x, mul)
+        zg = y1.reshape(n_src, n_dst, Q).transpose(0, 1).contiguous()
+        return zg.reshape(n_dst * self.R3, LANES)
+
+    def reduce(self, zg: torch.Tensor, sliced: bool = True) -> torch.Tensor:
+        """Stage 3: post-transpose quota tensor -> chunk space (data
+        slots populated, everything else zero)."""
+        y3 = route_stage(
+            zg, self.s3_r1, self.s3_src, self.s3_row, self.s3_r2,
+            self.s3_mask, self.n_dst, self.R3, self.chunk_rows,
+        )
+        out = y3.reshape(-1)
+        return out[: self.n_out] if sliced else out
+
+    def quota_view(self, y1: torch.Tensor) -> torch.Tensor:
+        """The PRE-exchange quota tensor as [n_src, n_dst, Q/128, 128]."""
+        if self.Q % LANES:
+            raise ValueError("strided exchange needs Q % 128 == 0")
+        return y1.reshape(self.n_src, self.n_dst, self.Q // LANES, LANES)
+
+    def reduce_strided(self, y1: torch.Tensor,
+                       sliced: bool = True) -> torch.Tensor:
+        """Stage 3 consuming the PRE-exchange quota tensor
+        [n_src * R1, 128] directly: each chunk reads its dst-chunk's
+        column slab from every source chunk, no transpose materializes.
+        Requires Q % 128 == 0, so the slab is whole lane tiles and the
+        stage tables apply unchanged."""
+        y3 = route_stage(
+            self.quota_view(y1), self.s3_r1, self.s3_src, self.s3_row,
+            self.s3_r2, self.s3_mask, self.n_dst, self.R3, self.chunk_rows,
+        )
+        out = y3.reshape(-1)
+        return out[: self.n_out] if sliced else out
+
+    def __call__(self, x: torch.Tensor, mul: Optional[torch.Tensor] = None,
+                 sliced: bool = True) -> torch.Tensor:
+        """Route `x` (elementwise-multiplied by `mul` inside the expand
+        kernel when given). With `sliced=False` the full padded output is
+        returned (the tail past `n_out` is zero)."""
+        return self.reduce(self.expand(x, mul), sliced=sliced)
+
+
+class GlobalRoute:
+    """out[out_idx[k]] = x[in_idx[k]] for a static partial injective map
+    over [0, n_pad); all other outputs are ZERO. No pad routing, no
+    bijection completion: quota slots not covered by data carry garbage
+    that is never read back, and output pads are zeroed by a static
+    mask. `.plan` holds the tables on the device.
+
+    `chunk_rows` sets the route-chunk size (chunk_rows*128 elements).
+    Larger chunks average the per-(src,dst) flows toward their mean (the
+    quota Q must cover the MAX flow), shrinking the quota tensor, at the
+    cost of more blocks per chunk in the stage tables."""
+
+    def __init__(self, out_idx: np.ndarray, in_idx: np.ndarray, n_pad: int,
+                 n_out: Optional[int] = None,
+                 force_geometry: Optional[Tuple[int, ...]] = None,
+                 chunk_rows: int = LANES,
+                 n_pad_out: Optional[int] = None,
+                 device=None,
+                 _defer: bool = False):
+        """`device=None` is the package default (`cuda`; raises without a
+        card), `"cpu"` is the host on request."""
+        self.device = resolve_device(device)
+        out_idx = np.asarray(out_idx, dtype=np.int64)
+        in_idx = np.asarray(in_idx, dtype=np.int64)
+        CR = int(chunk_rows)
+        assert CR % LANES == 0
+        CHR = CR * LANES  # elements per chunk
+        assert n_pad % CHR == 0, (n_pad, CHR)
+        if n_pad_out is None:
+            n_pad_out = n_pad
+        assert n_pad_out % CHR == 0, (n_pad_out, CHR)
+        n_ch = n_pad // CHR
+        n_ch_out = n_pad_out // CHR
+        maxflow = route_maxflow(out_idx, in_idx, n_pad, chunk=CHR,
+                                n_pad_out=n_pad_out)
+        if force_geometry is not None:
+            # (npd, Q) for square plans; (n_src, n_dst, Q) rectangular
+            if len(force_geometry) == 2:
+                npd, Q = force_geometry
+                n_src = n_dst = npd
+            else:
+                n_src, n_dst, Q = force_geometry
+            assert n_src >= n_ch and n_dst >= n_ch_out and Q >= maxflow, (
+                n_src, n_dst, Q, n_ch, n_ch_out, maxflow
+            )
+            assert n_src * Q % (LANES * LANES) == 0
+            assert n_dst * Q % (LANES * LANES) == 0
+        else:
+            assert n_pad_out == n_pad, (
+                "rectangular routes require force_geometry"
+            )
+            npd, Q = select_route_geometry(n_ch, maxflow)
+            n_src = n_dst = npd
+        R1 = n_dst * Q // LANES  # stage-1 quota rows per chunk
+        R3 = n_src * Q // LANES
+        assert R1 % LANES == 0 and R3 % LANES == 0
+        if max(R1, R3) // LANES > 16:
+            raise ValueError(
+                f"GlobalRoute degenerate: H={max(R1, R3) // LANES} "
+                f"(Q={Q}, n_chunks={n_src}); use a plain gather instead"
+            )
+        self.n_in = n_pad
+        self.n_out = n_out if n_out is not None else n_pad_out
+        self.n_src, self.n_dst, self.Q = n_src, n_dst, Q
+        self.R1, self.R3 = R1, R3
+        self.chunk_rows = CR
+
+        H_in_gt1 = CR > LANES
+        # all 9 tables are carved as views from ONE contiguous slab, in
+        # pinned memory on a CUDA run, so the route ships in one copy
+        shapes = [
+            (n_src, CR, LANES),
+            (n_src, R1 // LANES, LANES, LANES) if H_in_gt1 else None,
+            (n_src, R1 // LANES, LANES, LANES),
+            (n_src, R1, LANES),
+            (n_dst, R3, LANES),
+            (n_dst, CR // LANES, LANES, LANES),
+            (n_dst, CR // LANES, LANES, LANES),
+            (n_dst, CR, LANES),
+            (n_dst, CR, LANES),
+        ]
+        sizes = [0 if s is None else int(np.prod(s)) for s in shapes]
+        self._slab_t = torch.zeros(
+            sum(sizes), dtype=torch.int8,
+            pin_memory=self.device.type == "cuda",
+        )
+        self._slab = self._slab_t.numpy()
+        tables = []
+        off = 0
+        for s, n in zip(shapes, sizes):
+            tables.append(
+                None if s is None
+                else self._slab[off:off + n].reshape(s)
+            )
+            off += n
+        self._tables = tuple(tables)
+        self._out_idx, self._in_idx = out_idx, in_idx
+        if not _defer:
+            self._fill_tables()
+            self._finalize()
+
+    def _fill_tables(self):
+        """Populate the nine routing tables (native fast path, NumPy
+        fallback). Split out of __init__ so `build_route_pair_async` can
+        fill a forward/reverse pair with one shared native build."""
+        out_idx, in_idx = self._out_idx, self._in_idx
+        (s1_r1, s1_src, s1_row, s1_r2,
+         s3_r1, s3_src, s3_row, s3_r2, s3_mask) = self._tables
+        CR = self.chunk_rows
+        CHR = CR * LANES
+        n_src, n_dst, Q = self.n_src, self.n_dst, self.Q
+        R1, R3 = self.R1, self.R3
+        H_in_gt1 = CR > LANES
+        d_of = out_idx // CHR
+        s_of = in_idx // CHR
+
+        # Fast path: the ENTIRE table build (flow ranks by counting
+        # sort, per-chunk 128-edge-coloring on a thread pool, table
+        # scatters) in one native call.
+        if not route_tables_native(
+            out_idx, in_idx, CR, n_src, n_dst, Q,
+            (s1_r1, s1_src, s1_row, s1_r2,
+             s3_r1, s3_src, s3_row, s3_r2, s3_mask),
+        ):
+            # rank within each (s,d) flow (stable argsort on the
+            # combined key == lexsort by (s_of, d_of, position))
+            E = len(out_idx)
+            order = np.argsort(s_of * n_dst + d_of, kind="stable")
+            sd = s_of[order] * n_dst + d_of[order]
+            starts = np.concatenate(
+                [[0], np.nonzero(np.diff(sd))[0] + 1]
+            )
+            gid = np.zeros(E, dtype=np.int64)
+            gid[starts] = 1
+            gid = np.cumsum(gid) - 1
+            rank = np.zeros(E, dtype=np.int64)
+            rank[order] = np.arange(E) - starts[gid]
+            q_slot = d_of * Q + rank  # within src chunk quota space
+            q3_slot = s_of * Q + rank  # within dst chunk (post-exch.)
+
+            # Batched channel coloring + flat-index table scatters
+            # (one advanced-index assignment per table on the raveled
+            # array). `order` is already grouped by src chunk, so it
+            # is the stage-1 batch order. All flat indices fit int32.
+            H1 = R1 // LANES
+            sb = np.searchsorted(s_of[order], np.arange(n_src + 1))
+            cid = s_of[order].astype(np.int32)
+            io = in_idx[order].astype(np.int32)
+            in_row = (io % CHR) // LANES
+            qo = q_slot[order].astype(np.int32)
+            q_row = qo // LANES
+            q_rm = q_row % LANES
+            c1 = edge_color_batch(in_row, q_row, sb, max(CR, R1), LANES)
+            s1_r1.reshape(-1)[
+                (cid * CR + in_row) * LANES + c1
+            ] = io % LANES
+            mid1 = (
+                (cid * H1 + q_row // LANES) * LANES + c1
+            ) * LANES + q_rm
+            if H_in_gt1:
+                s1_src.reshape(-1)[mid1] = in_row // LANES
+            s1_row.reshape(-1)[mid1] = in_row % LANES
+            s1_r2.reshape(-1)[
+                (cid * R1 + q_row) * LANES + qo % LANES
+            ] = c1
+
+            H3 = CR // LANES
+            do = np.argsort(d_of, kind="stable")
+            db = np.searchsorted(d_of[do], np.arange(n_dst + 1))
+            did = d_of[do].astype(np.int32)
+            q3o = q3_slot[do].astype(np.int32)
+            q3_row = q3o // LANES
+            oo = out_idx[do].astype(np.int32)
+            o_row = (oo % CHR) // LANES
+            o_flat = (did * CR + o_row) * LANES + oo % LANES
+            c3 = edge_color_batch(q3_row, o_row, db, max(R3, CR), LANES)
+            s3_r1.reshape(-1)[
+                (did * R3 + q3_row) * LANES + c3
+            ] = q3o % LANES
+            mid3 = (
+                ((did * H3 + o_row // LANES) * LANES + c3) * LANES
+                + o_row % LANES
+            )
+            s3_src.reshape(-1)[mid3] = q3_row // LANES
+            s3_row.reshape(-1)[mid3] = q3_row % LANES
+            s3_r2.reshape(-1)[o_flat] = c3
+            s3_mask.reshape(-1)[o_flat] = 1
+
+    def host(self) -> dict:
+        """The host-side tables and static metadata (for the persistent
+        plan cache); valid until `_finalize`."""
+        return {
+            "tables": self._tables,
+            "meta": (self.n_in, self.n_out, self.n_src, self.n_dst, self.Q,
+                     self.R1, self.R3, self.chunk_rows),
+        }
+
+    def _finalize(self):
+        dev_tables = tables_to_device(self._tables, self.device,
+                                      slab=self._slab_t)
+        del self._tables, self._slab, self._slab_t
+        del self._out_idx, self._in_idx
+        self.plan = GlobalRoutePlan(
+            *dev_tables,
+            n_in=self.n_in,
+            n_out=self.n_out,
+            n_src=self.n_src,
+            n_dst=self.n_dst,
+            Q=self.Q,
+            R1=self.R1,
+            R3=self.R3,
+            chunk_rows=self.chunk_rows,
+        )
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return self.plan(x)
+
+
+def build_route_pair(
+    out_idx: np.ndarray,
+    in_idx: np.ndarray,
+    n_pad: int,
+    force_geometry: Optional[Tuple[int, ...]] = None,
+    chunk_rows: int = LANES,
+    n_pad_out: Optional[int] = None,
+    device=None,
+) -> Tuple[GlobalRoutePlan, GlobalRoutePlan]:
+    """Build the forward route (out_idx <- in_idx) AND its reverse
+    (in_idx <- out_idx) with ONE shared native table build. The reverse
+    route's per-chunk channel graphs are the forward's with edge
+    direction flipped (identical flows and ranks), so each chunk side is
+    edge-colored once instead of twice. Returns (fwd.plan, rev.plan);
+    two independent builds when the native pair entry point is
+    unavailable."""
+    handle = build_route_pair_async(
+        out_idx, in_idx, n_pad, force_geometry=force_geometry,
+        chunk_rows=chunk_rows, n_pad_out=n_pad_out, device=device,
+    )
+    return handle()
+
+
+def build_route_pair_async(
+    out_idx: np.ndarray,
+    in_idx: np.ndarray,
+    n_pad: int,
+    force_geometry: Optional[Tuple[int, ...]] = None,
+    chunk_rows: int = LANES,
+    n_pad_out: Optional[int] = None,
+    keep_host: bool = False,
+    device=None,
+):
+    """`build_route_pair` with the heavy table fill running on a worker
+    thread (the native entry point releases the GIL and runs its own
+    pool). Geometry is resolved EAGERLY: `handle.n_src/.n_dst/.Q/
+    .chunk_rows` are valid immediately, so the caller can build and ship
+    everything geometry-dependent (w_txp, seg_id) concurrently with the
+    coloring. Call the handle to join and get (fwd.plan, rev.plan). With
+    `keep_host=True` the host-side tables survive as `handle.host` (for
+    the persistent plan cache). After the join `handle.fill_s` and
+    `handle.upload_s` hold the seconds of the table fill (coloring
+    included) and of the copies to the device."""
+    fwd = GlobalRoute(out_idx, in_idx, n_pad,
+                      force_geometry=force_geometry,
+                      chunk_rows=chunk_rows, n_pad_out=n_pad_out,
+                      device=device, _defer=True)
+    n_pad_fwd_out = n_pad if n_pad_out is None else n_pad_out
+    rev = GlobalRoute(in_idx, out_idx, n_pad_fwd_out,
+                      force_geometry=(fwd.n_dst, fwd.n_src, fwd.Q),
+                      chunk_rows=chunk_rows, n_pad_out=n_pad,
+                      device=device, _defer=True)
+    state = {}
+
+    def fill():
+        t0 = time.perf_counter()
+        try:
+            if not route_tables_pair_native(
+                out_idx, in_idx, chunk_rows, fwd.n_src, fwd.n_dst, fwd.Q,
+                fwd._tables, rev._tables,
+            ):
+                fwd._fill_tables()
+                rev._fill_tables()
+        except BaseException as e:  # noqa: BLE001 - re-raised at join
+            state["err"] = e
+        state["fill_s"] = time.perf_counter() - t0
+
+    th = threading.Thread(target=fill, daemon=True)
+    th.start()
+
+    def handle():
+        th.join()
+        if "err" in state:
+            raise state["err"]
+        if keep_host:
+            # the views keep their slabs alive after `_finalize`
+            handle.host = (fwd.host(), rev.host())
+        t0 = time.perf_counter()
+        fwd._finalize()
+        rev._finalize()
+        handle.fill_s = state["fill_s"]
+        handle.upload_s = time.perf_counter() - t0
+        return fwd.plan, rev.plan
+
+    handle.n_src, handle.n_dst = fwd.n_src, fwd.n_dst
+    handle.Q, handle.chunk_rows = fwd.Q, fwd.chunk_rows
+    return handle

@@ -8,11 +8,13 @@ the torch device the caller names (`args.device`, default `cuda`). There
 is no em/em_par split: the device EM is deterministic and uses the serial
 path's convergence guard (`niter > 50`), which is the parity target.
 
-Three EM formulations are ported: `segsum` (`ops/em.py`), `fast` and
+Four EM formulations are ported: `segsum` (`ops/em.py`), `fast` and
 `pallas` (`ops/em_fast.py`, the latter with the hand-written sorted-gather
-kernel). A run never changes formulation or device behind the caller's
-back: what is not ported raises `NotImplementedError`, and a missing
-device or a kernel that does not build or launch raises too.
+kernel), and `v4` (`ops/em_v4.py`, the routed iteration with its three
+hand-written kernels). A run never changes formulation or device behind
+the caller's back: what is not ported raises `NotImplementedError`, a
+missing device or a kernel that does not build or launch raises, and so
+does a `v4` whose route geometry is not feasible.
 """
 
 from __future__ import annotations
@@ -37,7 +39,9 @@ from ..ops.em import (
     run_em,
     run_em_squarem,
 )
+from ..ops import plan_cache
 from ..ops.em_fast import FastEmData, run_em_fast, run_em_fast_squarem
+from ..ops.em_v4 import EmV4Data, run_em_v4, run_em_v4_squarem
 from ..utils.digest import LazyDigest, digest_from_header
 from .meta import get_json_info
 from .short_read import read_short_quant_vec
@@ -50,7 +54,11 @@ from .writers import (
 
 log = logging.getLogger("oarfish_tpu_torch")
 
-PORTED_IMPLS = ("segsum", "fast", "pallas")
+PORTED_IMPLS = ("segsum", "fast", "pallas", "v4")
+
+# Below this many alignments the v4 route geometry degenerates (the
+# build raises), so auto never tries it.
+V4_MIN_ALNS = 1_000_000
 
 
 def not_ported(what: str, queue_item: str) -> NotImplementedError:
@@ -60,20 +68,28 @@ def not_ported(what: str, queue_item: str) -> NotImplementedError:
     )
 
 
-def choose_auto_impl(device_type: str) -> str:
-    """The EM formulation for `--em-impl auto`: `segsum` on the CPU; on
-    the card `pallas`, i.e. the scatter-free formulation with the
-    sorted-gather kernel, until the routed v4 iteration is ported."""
-    return "segsum" if device_type == "cpu" else "pallas"
+def choose_auto_impl(
+    device_type: str, num_alignments: int, max_em_iter: int,
+    num_bootstraps: int,
+) -> str:
+    """The EM formulation for `--em-impl auto`: `segsum` on the CPU. On
+    the card the JAX package's rule: the routed `v4` iteration pays a
+    one-shot route build, so it is taken when the run is big enough for a
+    viable route geometry and is expected to do at least 150 iterations
+    (bootstrap replicates reuse the tables); otherwise `pallas`, the
+    scatter-free formulation with the sorted-gather kernel."""
+    if device_type == "cpu":
+        return "segsum"
+    expected_iters = min(max_em_iter, 1000) * (1 + num_bootstraps)
+    if num_alignments >= V4_MIN_ALNS and expected_iters >= 150:
+        return "v4"
+    return "pallas"
 
 
 def check_ported(args: Args) -> None:
     """Raise for every option whose code path waits for a later port."""
-    if args.em_impl in ("v3", "v4"):
-        raise not_ported(
-            f"--em-impl {args.em_impl}",
-            "queue A item 1" if args.em_impl == "v4" else "queue A item 7",
-        )
+    if args.em_impl == "v3":
+        raise not_ported("--em-impl v3", "queue A item 7")
     if args.num_shards > 1 or (args.num_processes or 0) > 1:
         raise not_ported(
             "the sharded / multi-process EM (--num-shards > 1, "
@@ -156,14 +172,38 @@ def perform_inference_and_write_output(
 
     impl = args.em_impl
     if impl == "auto":
-        impl = choose_auto_impl(device.type)
+        impl = choose_auto_impl(
+            device.type, store.num_alignments, args.max_em_iter,
+            args.num_bootstraps,
+        )
         log.info("em-impl auto -> %s", impl)
     if impl not in PORTED_IMPLS:
         raise ValueError(f"unknown --em-impl {impl!r}")
 
     T = len(txps_name)
     squarem = args.em_accel == "squarem"
-    if impl == "segsum":
+    read_order = None
+    if impl == "v4":
+        if dtype != torch.float32:
+            # as in the JAX package, the routed iteration is an f32 program
+            log.info("--em-impl v4 runs in float32 (--em-dtype %s ignored)",
+                     args.em_dtype)
+            dtype = torch.float32
+        t0 = time.time()
+        try:
+            data, read_order = EmV4Data.build(
+                store.txp_id,
+                combined_weights(store, opts.model_coverage, dens_prob),
+                store.boundaries, T, dtype=dtype, device=device,
+            )
+        except ValueError as e:
+            raise ValueError(
+                f"--em-impl v4 cannot route these {store.num_alignments} "
+                f"alignments ({e}); use --em-impl pallas"
+            ) from e
+        log.info("v4 routing built in %.1fs", time.time() - t0)
+        run = run_em_v4_squarem if squarem else run_em_v4
+    elif impl == "segsum":
         data = build_em_inputs(
             store, T, opts.model_coverage, dens_prob, dtype, device
         )
@@ -198,11 +238,13 @@ def perform_inference_and_write_output(
         t0 = time.time()
         rng = np.random.default_rng(args.seed)
         # read multiplicities are exchangeable, so the fast layout's
-        # relabeled read order takes the draw as it comes (as the JAX
-        # package does)
+        # relabeled read order takes the draw as it comes; the v4 layout
+        # takes it per padded bucket row (both as the JAX package does)
         mult = bootstrap_ops.sample_multiplicities(
             rng, args.num_bootstraps, store.num_reads
         )
+        if read_order is not None:
+            mult = mult[:, read_order]
         breps, boot_iters = bootstrap_ops.run_replicates(
             lambda i, m: run(
                 data, i, args.max_em_iter, args.convergence_thresh,
@@ -230,6 +272,8 @@ def perform_inference_and_write_output(
             == ReadAssignmentProbOut.COMPRESSED,
         )
 
+    # a plan stored by this run is on disk before the process ends
+    plan_cache.wait_for_stores()
     return counts
 
 

@@ -46,10 +46,26 @@ def module_names():
 def test_sources_exist():
     names = {p.relative_to(REPO).as_posix() for p in port_sources()}
     for need in ("oarfish_tpu_torch/csrc/sorted_gather.cu",
+                 "oarfish_tpu_torch/csrc/tile_permute.cu",
+                 "oarfish_tpu_torch/csrc/route_stage.cu",
+                 "oarfish_tpu_torch/csrc/route_middle.cu",
+                 "oarfish_tpu_torch/csrc/route_common.cuh",
                  "oarfish_tpu_torch/kernels/build.py",
                  "oarfish_tpu_torch/ops/sorted_gather.py",
+                 "oarfish_tpu_torch/ops/tile_permute.py",
+                 "oarfish_tpu_torch/ops/route_stage.py",
+                 "oarfish_tpu_torch/ops/route_middle.py",
+                 "oarfish_tpu_torch/ops/static_permute.py",
+                 "oarfish_tpu_torch/ops/permute_plan.py",
+                 "oarfish_tpu_torch/ops/balance.py",
+                 "oarfish_tpu_torch/ops/em_v4.py",
+                 "oarfish_tpu_torch/ops/plan_cache.py",
                  "oarfish_tpu_torch/device.py", "chip_smoke.py"):
         assert need in names
+    from oarfish_tpu_torch.kernels import build
+
+    for kernel in build.CUDA_KERNELS:
+        assert f"oarfish_tpu_torch/csrc/{kernel}.cu" in names
 
 
 @pytest.mark.parametrize(
@@ -111,7 +127,6 @@ BAM = ["--alignments", "x.bam", "-o", "out", "--device", "cpu"]
 
 
 @pytest.mark.parametrize("argv,queue", [
-    (BAM + ["--em-impl", "v4"], "queue A item 1"),
     (BAM + ["--em-impl", "v3"], "queue A item 7"),
     (BAM + ["--num-shards", "2"], "queue A item 6"),
     (BAM + ["--num-processes", "2"], "queue A item 6"),
@@ -130,7 +145,19 @@ def test_unported_options_raise(argv, queue):
     assert queue in str(e.value) and "ROADMAP.md" in str(e.value)
 
 
-@pytest.mark.parametrize("item", [1, 4, 5, 6, 7])
+def test_v4_is_ported_and_v3_is_not():
+    from oarfish_tpu_torch.config import Args
+
+    assert "v4" in tbulk.PORTED_IMPLS and "v3" not in tbulk.PORTED_IMPLS
+    tbulk.check_ported(Args(em_impl="v4"))
+    with pytest.raises(NotImplementedError, match="queue A item 7"):
+        tbulk.check_ported(Args(em_impl="v3"))
+    # past the option check: the run fails on the missing input instead
+    with pytest.raises((OSError, ValueError)):
+        torch_main(BAM + ["--em-impl", "v4"])
+
+
+@pytest.mark.parametrize("item", [4, 5, 6, 7])
 def test_roadmap_has_the_queue_items_named_in_errors(item):
     roadmap = (REPO / "ROADMAP.md").read_text()
     section = roadmap[roadmap.index("### A. Modules to port"):]
@@ -152,16 +179,25 @@ def test_default_device_is_cuda_and_raises_without_it():
 
 
 @pytest.mark.parametrize("factory", ["EmData", "FastEmData",
-                                     "SortedGatherPlan"])
+                                     "SortedGatherPlan", "EmV4Data",
+                                     "BatchTilePermute", "GlobalRoute"])
 def test_library_builders_default_to_cuda(factory):
     """A library caller who names no device gets the card or an error,
     never a quiet EM on the host."""
     import numpy as np
 
-    from oarfish_tpu_torch.ops import em, em_fast, sorted_gather
+    from oarfish_tpu_torch.ops import (
+        em,
+        em_fast,
+        em_v4,
+        sorted_gather,
+        static_permute,
+    )
 
     txp_id = np.array([0, 1, 0], dtype=np.int32)
     w = np.ones(3)
+    tile = static_permute.DeviceTilePlan.build(
+        np.random.default_rng(0).permutation(128 * 128), 128)
     calls = {
         "EmData": lambda **kw: em.EmData.build(
             txp_id, w, np.array([0, 0, 1], dtype=np.int32), 2, 2, **kw),
@@ -170,6 +206,12 @@ def test_library_builders_default_to_cuda(factory):
             **kw)[0],
         "SortedGatherPlan": lambda **kw: sorted_gather.SortedGatherPlan.build(
             np.arange(10), 100, **kw),
+        "EmV4Data": lambda **kw: em_v4.EmV4Data.build(
+            txp_id, w, np.array([0, 2, 3]), 2, **kw)[0],
+        "BatchTilePermute": lambda **kw: static_permute.BatchTilePermute.build(
+            [tile], **kw),
+        "GlobalRoute": lambda **kw: static_permute.GlobalRoute(
+            np.arange(10), np.arange(10)[::-1], 128 * 128, **kw).plan,
     }
     call = calls[factory]
     if torch.cuda.is_available():
@@ -198,9 +240,22 @@ def test_device_and_dtype_policy():
     assert torch.backends.cuda.matmul.allow_tf32 is False
 
 
-def test_auto_impl_policy():
-    assert tbulk.choose_auto_impl("cpu") == "segsum"
-    assert tbulk.choose_auto_impl("cuda") == "pallas"
+@pytest.mark.parametrize("device,alns,max_iter,boots,want", [
+    ("cpu", 6_000_000, 1000, 0, "segsum"),
+    ("cpu", 10, 1000, 100, "segsum"),
+    ("cuda", 6_000_000, 1000, 0, "v4"),
+    ("cuda", 1_000_000, 1000, 0, "v4"),
+    ("cuda", 999_999, 1000, 0, "pallas"),
+    ("cuda", 6_000_000, 100, 0, "pallas"),   # < 150 expected iterations
+    ("cuda", 6_000_000, 100, 1, "v4"),       # 100 * (1 + 1) replicates
+    ("cuda", 6_000_000, 149, 0, "pallas"),
+    ("cuda", 6_000_000, 150, 0, "v4"),
+    ("cuda", 6_000_000, 10**6, 0, "v4"),     # capped at 1000 a run
+    ("cuda", 5_000, 1000, 100, "pallas"),
+])
+def test_auto_impl_policy(device, alns, max_iter, boots, want):
+    """The JAX package's rule, without its environment switch."""
+    assert tbulk.choose_auto_impl(device, alns, max_iter, boots) == want
 
 
 def test_cuda_kernel_build_raises_without_nvcc(monkeypatch):

@@ -1,0 +1,524 @@
+"""Tile permute, route stage and fused middle of the torch port vs the
+Pallas kernels of the JAX package.
+
+The same seeded NumPy inputs and the same int8 tables (built by the JAX
+package and carried across by `ops/convert.py`) go through
+`static_permute._run_batch`, `_run_route_stage` and `_run_middle_stage`
+(Pallas interpret mode on the CPU) and through the port's plain versions,
+which are what the port runs for CPU tensors and what the CUDA kernels are
+held against on the card.
+
+Tolerance: none. K2 and K3 move f32 values (K3 with one product per
+element when `mul` is given); K4 adds the rows of a group in the order of
+the JAX kernel's butterfly and divides once. All outputs must be equal bit
+for bit, uncovered quota slots included.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from oarfish_tpu.constants import EM_DENOM_THRESH
+from oarfish_tpu.ops import static_permute as jsp
+from oarfish_tpu_torch.ops import route_middle as rm
+from oarfish_tpu_torch.ops import route_stage as rs
+from oarfish_tpu_torch.ops import static_permute as tsp
+from oarfish_tpu_torch.ops import tile_permute as tp
+from oarfish_tpu_torch.ops.convert import (
+    ROUTE_META,
+    route_plan_from_numpy,
+    tile_permute_from_numpy,
+)
+
+LANES = 128
+
+
+def np_or_none(a):
+    return None if a is None else np.asarray(a)
+
+
+def route_fields(jplan):
+    """A JAX `GlobalRoutePlan` as `convert.route_plan_from_numpy` takes it."""
+    fields = {k: np_or_none(getattr(jplan, k)) for k in tsp.ROUTE_TABLES}
+    fields.update({k: getattr(jplan, k) for k in ROUTE_META})
+    return fields
+
+
+def tile_fields(jtile):
+    """A JAX `BatchTilePermute` as `convert.tile_permute_from_numpy` takes
+    it."""
+    return ({k: np.asarray(getattr(jtile, k))
+             for k in ("r1", "r2", "src", "lane")}
+            | {"rows": jtile.rows, "n_tiles": jtile.n_tiles})
+
+
+def route_to_port(jplan):
+    return route_plan_from_numpy(route_fields(jplan), "cpu")
+
+
+def bits(a):
+    return np.ascontiguousarray(np.asarray(a)).tobytes()
+
+
+def random_route(seed, n_chunks, chunk_rows, cover=0.8):
+    rng = np.random.default_rng(seed)
+    n = n_chunks * chunk_rows * LANES
+    n_data = int(n * cover)
+    out_idx = np.sort(rng.choice(n, size=n_data, replace=False))
+    in_idx = rng.permutation(n)[:n_data]
+    return rng, n, out_idx, in_idx
+
+
+# ---------------------------------------------------------------------------
+# K2: batched tile permute
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed,rows,n_tiles", [(0, 128, 1), (1, 256, 3),
+                                               (2, 512, 2)])
+def test_tile_permute_bit_equal_to_pallas(seed, rows, n_tiles):
+    rng = np.random.default_rng(seed)
+    perms = [rng.permutation(rows * LANES) for _ in range(n_tiles)]
+    jb = jsp.BatchTilePermute.build(
+        [jsp.DeviceTilePlan.build(p, rows) for p in perms])
+    x = rng.normal(size=n_tiles * rows * LANES).astype(np.float32)
+    want = np.asarray(jb(jnp.asarray(x)))
+    carried = tile_permute_from_numpy(tile_fields(jb), "cpu")
+    own = tsp.BatchTilePermute.build(
+        [tsp.DeviceTilePlan.build(p, rows) for p in perms], device="cpu")
+    for plan in (carried, own):
+        got = plan(torch.from_numpy(x))
+        assert got.dtype == torch.float32
+        assert bits(got.numpy()) == bits(want)
+    np.testing.assert_array_equal(
+        want, np.concatenate([x[i * rows * LANES:(i + 1) * rows * LANES][p]
+                              for i, p in enumerate(perms)]))
+    for name in ("r1", "r2", "src", "lane"):
+        np.testing.assert_array_equal(
+            getattr(own, name).numpy(), np.asarray(getattr(jb, name)))
+
+
+def test_tile_permute_f64_passes_through():
+    rng = np.random.default_rng(7)
+    perm = rng.permutation(256 * LANES)
+    plan = tsp.BatchTilePermute.build(
+        [tsp.DeviceTilePlan.build(perm, 256)], device="cpu")
+    x = rng.normal(size=256 * LANES)
+    got = plan(torch.from_numpy(x))
+    assert got.dtype == torch.float64
+    np.testing.assert_array_equal(got.numpy(), x[perm])
+
+
+# ---------------------------------------------------------------------------
+# K3: one route stage
+# ---------------------------------------------------------------------------
+
+# seed, chunks, chunk rows: 128 rows is one input block in the expand stage
+# (no `src` table), 256 and 512 are several
+ROUTES = [(13, 16, 128), (14, 12, 256), (15, 4, 512)]
+
+
+@pytest.fixture(scope="module")
+def routes():
+    out = {}
+    for seed, n_chunks, cr in ROUTES:
+        rng, n, out_idx, in_idx = random_route(seed, n_chunks, cr)
+        jr = jsp.GlobalRoute(out_idx, in_idx, n, chunk_rows=cr)
+        out[cr] = (rng, n, out_idx, in_idx, jr.plan, route_to_port(jr.plan))
+    return out
+
+
+@pytest.mark.parametrize("cr", [r[2] for r in ROUTES])
+@pytest.mark.parametrize("with_mul", [False, True])
+def test_expand_stage_bit_equal_to_pallas(routes, cr, with_mul):
+    rng, n, _, _, jp, tpn = routes[cr]
+    assert (tpn.s1_src is None) == (cr == 128)
+    x = rng.normal(size=n).astype(np.float32)
+    mul = rng.normal(size=n).astype(np.float32) if with_mul else None
+    want = np.asarray(jp.expand_y1(
+        jnp.asarray(x), None if mul is None else jnp.asarray(mul)))
+    got = tpn.expand_y1(torch.from_numpy(x),
+                        None if mul is None else torch.from_numpy(mul))
+    assert got.shape == (tpn.n_src * tpn.R1, LANES)
+    assert bits(got.numpy()) == bits(want)
+
+
+@pytest.mark.parametrize("cr", [r[2] for r in ROUTES])
+@pytest.mark.parametrize("strided", [False, True])
+def test_reduce_stage_bit_equal_to_pallas(routes, cr, strided):
+    """The masked reduce stage on a full quota tensor of random values
+    (uncovered slots included), through the transposed exchange and
+    through the strided one."""
+    rng, _, _, _, jp, tpn = routes[cr]
+    assert tpn.Q % LANES == 0, "the strided exchange needs whole lane tiles"
+    y1 = rng.normal(size=(tpn.n_src * tpn.R1, LANES)).astype(np.float32)
+    if strided:
+        want = np.asarray(jp.reduce_strided(jnp.asarray(y1), sliced=False))
+        got = tpn.reduce_strided(torch.from_numpy(y1), sliced=False)
+    else:
+        zg = y1.reshape(tpn.n_src, tpn.n_dst, tpn.Q).transpose(1, 0, 2)
+        zg = np.ascontiguousarray(zg).reshape(tpn.n_dst * tpn.R3, LANES)
+        want = np.asarray(jp.reduce(jnp.asarray(zg), sliced=False))
+        got = tpn.reduce(torch.from_numpy(zg), sliced=False)
+    assert bits(got.numpy()) == bits(want)
+    # masked outputs are exactly zero
+    mask = tpn.s3_mask.numpy().reshape(-1) != 0
+    assert not got.numpy()[~mask].any()
+
+
+@pytest.mark.parametrize("cr", [r[2] for r in ROUTES])
+def test_route_end_to_end(routes, cr):
+    """Both packages' whole route equals `out[out_idx] = x[in_idx]` with
+    zeros elsewhere, on the carried tables and on the port's own build,
+    whose tables equal the JAX package's."""
+    rng, n, out_idx, in_idx, jp, tpn = routes[cr]
+    own = tsp.GlobalRoute(out_idx, in_idx, n, chunk_rows=cr,
+                          device="cpu").plan
+    for name in tsp.ROUTE_TABLES:
+        a, b = getattr(own, name), getattr(tpn, name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert torch.equal(a, b), name
+    assert all(getattr(own, k) == getattr(jp, k) for k in ROUTE_META)
+    x = rng.normal(size=n).astype(np.float32)
+    want = np.zeros(n, np.float32)
+    want[out_idx] = x[in_idx]
+    for plan in (tpn, own):
+        np.testing.assert_array_equal(plan(torch.from_numpy(x)).numpy(), want)
+
+
+def test_route_skewed_flows():
+    """Concentrated flows (a hot chunk pair) still route exactly."""
+    rng = np.random.default_rng(14)
+    ch = 128 * LANES
+    n = 32 * ch
+    hot_out = 17 * ch + rng.permutation(ch)[: ch // 8]
+    hot_in = 3 * ch + rng.permutation(ch)[: ch // 8]
+    rest = int(n * 0.3)
+    pool_out = np.setdiff1d(np.arange(n), hot_out)
+    pool_in = np.setdiff1d(np.arange(n), hot_in)
+    out_idx = np.concatenate([hot_out, rng.permutation(pool_out)[:rest]])
+    in_idx = np.concatenate([hot_in, rng.permutation(pool_in)[:rest]])
+    plan = tsp.GlobalRoute(out_idx, in_idx, n, device="cpu").plan
+    x = rng.normal(size=n).astype(np.float32)
+    want = np.zeros(n, np.float32)
+    want[out_idx] = x[in_idx]
+    np.testing.assert_array_equal(plan(torch.from_numpy(x)).numpy(), want)
+
+
+def test_degenerate_route_raises():
+    """Flows too concentrated for the quota (every chunk maps onto
+    itself): the build raises, as the JAX package's does."""
+    n = 32 * 128 * LANES
+    out_idx = in_idx = np.arange(n)
+    with pytest.raises(ValueError, match="degenerate"):
+        tsp.GlobalRoute(out_idx, in_idx, n, device="cpu")
+    with pytest.raises(ValueError, match="degenerate"):
+        jsp.GlobalRoute(out_idx, in_idx, n)
+
+
+def test_pair_build_equals_two_single_builds():
+    rng, n, out_idx, in_idx = random_route(21, 16, 128)
+    fwd, rev = tsp.build_route_pair(out_idx, in_idx, n, device="cpu")
+    x = rng.normal(size=n).astype(np.float32)
+    y = fwd(torch.from_numpy(x))
+    want = np.zeros(n, np.float32)
+    want[out_idx] = x[in_idx]
+    np.testing.assert_array_equal(y.numpy(), want)
+    back = np.zeros(n, np.float32)
+    back[in_idx] = want[out_idx]
+    np.testing.assert_array_equal(rev(y).numpy(), back)
+    jf, jr = jsp.build_route_pair(out_idx, in_idx, n)
+    for ours, theirs in ((fwd, jf), (rev, jr)):
+        for name in tsp.ROUTE_TABLES:
+            a, b = getattr(ours, name), getattr(theirs, name)
+            if a is not None:
+                np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+# ---------------------------------------------------------------------------
+# K4: fused middle
+# ---------------------------------------------------------------------------
+
+def level_table(rng, n_chunks, cr, max_lvl):
+    """[n_chunks * cr, 128] i8 as `em_v4._read_lvl_ids` lays it out: runs
+    of aligned groups of 2^L rows, every L in 0..max_lvl present in every
+    chunk, -1 rows between them."""
+    lvl = np.full(n_chunks * cr, -1, dtype=np.int8)
+    for c in range(n_chunks):
+        r = 0
+        # largest first, so that every mandatory group is aligned
+        todo = [-1] + list(range(max_lvl + 1))
+        while r < cr:
+            L = todo.pop() if todo else int(rng.integers(-1, max_lvl + 1))
+            K = 1 << max(L, 0)
+            r = -(-r // K) * K  # align
+            if r + K > cr:
+                break
+            lvl[c * cr + r: c * cr + r + K] = L
+            r += K
+    return np.ascontiguousarray(np.broadcast_to(lvl[:, None],
+                                                (n_chunks * cr, LANES)))
+
+
+MIDDLES = [(31, 16, 128, 5), (32, 12, 256, 7), (33, 4, 512, 3)]
+
+
+@pytest.fixture(scope="module")
+def middles():
+    out = {}
+    for seed, n_chunks, cr, max_lvl in MIDDLES:
+        rng, n, out_idx, in_idx = random_route(seed, n_chunks, cr)
+        ja, jb = jsp.build_route_pair(out_idx, in_idx, n, chunk_rows=cr)
+        lvl = level_table(rng, ja.n_dst, cr, max_lvl)
+        for L in range(-1, max_lvl + 1):
+            assert (lvl == L).any(), L
+        out[cr] = (rng, ja, jb, route_to_port(ja), route_to_port(jb), lvl,
+                   max_lvl)
+    return out
+
+
+def middle_args(pa, pb, conv):
+    return [conv(t) for t in (pa.s3_r1, pa.s3_src, pa.s3_row, pa.s3_r2,
+                              pa.s3_mask, pb.s1_r1, pb.s1_src, pb.s1_row,
+                              pb.s1_r2)]
+
+
+@pytest.mark.parametrize("cr", [m[2] for m in MIDDLES])
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("with_mult", [False, True])
+def test_middle_bit_equal_to_pallas(middles, cr, strided, with_mult):
+    rng, ja, jb, ta, tb, lvl, max_lvl = middles[cr]
+    n_q, n_c = ta.n_dst * ta.R3, ta.n_dst * cr
+    # positive and negative values, some of them tiny, and exact zeros so
+    # that the denominator threshold is met from both sides
+    y = rng.normal(size=(n_q, LANES)).astype(np.float32)
+    y[rng.random(y.shape) < 0.05] = 0.0
+    y[rng.random(y.shape) < 0.02] *= 1e-32
+    mult = (rng.integers(0, 4, size=(n_c, LANES)).astype(np.float32)
+            if with_mult else None)
+    qr = ta.Q // LANES if strided else 0
+    yj = jnp.asarray(y)
+    want = np.asarray(jsp._run_middle_stage(
+        yj.reshape(ta.n_src, ta.n_dst, qr, LANES) if strided else yj,
+        jnp.asarray(lvl), *middle_args(ja, jb, lambda t: t),
+        n_chunks=ja.n_dst, R_q=ja.R3, R_c=cr, thresh=float(EM_DENOM_THRESH),
+        max_lvl=max_lvl, mult=None if mult is None else jnp.asarray(mult),
+        strided_qr=qr))
+    yt = torch.from_numpy(y)
+    got = rm.route_middle(
+        ta.quota_view(yt) if strided else yt, torch.from_numpy(lvl),
+        *middle_args(ta, tb, lambda t: t), n_chunks=ta.n_dst, R_q=ta.R3,
+        R_c=cr, thresh=float(EM_DENOM_THRESH), max_lvl=max_lvl,
+        mult=None if mult is None else torch.from_numpy(mult))
+    assert got.shape == (n_q, LANES) and got.dtype == torch.float32
+    assert np.isfinite(got.numpy()).all()
+    assert bits(got.numpy()) == bits(want)
+
+
+def test_middle_denominators_are_group_sums(middles):
+    """What the butterfly computes, said directly: every row of an aligned
+    group of 2^L rows is divided by the group's sum at its lane; rows with
+    level -1 and groups whose sum is not above the threshold give 0."""
+    rng, _, _, ta, tb, lvl, max_lvl = middles[256]
+    cr, n = 256, ta.n_dst
+    y = rng.uniform(0.5, 2.0, size=(n * ta.R3, LANES)).astype(np.float32)
+    args = middle_args(ta, tb, lambda t: t)
+    x = rs.stage_apply_reference(
+        torch.from_numpy(y).reshape(n, ta.R3, LANES), *args[:5]).numpy()
+    xs = np.zeros_like(x, dtype=np.float64)
+    for c in range(n):
+        r = 0
+        while r < cr:
+            L = int(lvl[c * cr + r, 0])
+            K = 1 << max(L, 0)
+            if L >= 0:
+                d = x[c, r:r + K].astype(np.float64).sum(axis=0)
+                ok = d > EM_DENOM_THRESH
+                xs[c, r:r + K] = np.where(ok, x[c, r:r + K] / np.where(ok, d, 1), 0)
+            r += K
+    want = rs.stage_apply_reference(
+        torch.from_numpy(xs.astype(np.float32)), *args[5:], None)
+    got = rm.route_middle(
+        torch.from_numpy(y), torch.from_numpy(lvl), *args, n_chunks=n,
+        R_q=ta.R3, R_c=cr, thresh=float(EM_DENOM_THRESH), max_lvl=max_lvl)
+    np.testing.assert_allclose(
+        got.numpy(), want.reshape(-1, LANES).numpy(), rtol=1e-5, atol=1e-7)
+
+
+def test_quota_of_half_a_lane_tile():
+    """256 chunks with thin flows settle on Q = 64: the quota is no whole
+    number of 128-lane tiles, so only the transposed exchange applies. The
+    route and the fused middle still equal the Pallas kernels bit for
+    bit."""
+    rng, n, out_idx, in_idx = random_route(50, 256, 128, cover=0.45)
+    ja, jb = jsp.build_route_pair(out_idx, in_idx, n)
+    assert ja.Q == 64 and ja.n_src == 256
+    ta, tb = route_to_port(ja), route_to_port(jb)
+    x = rng.normal(size=n).astype(np.float32)
+    want = np.zeros(n, np.float32)
+    want[out_idx] = x[in_idx]
+    zg_j = ja.expand(jnp.asarray(x))
+    zg_t = ta.expand(torch.from_numpy(x))
+    assert bits(zg_t.numpy()) == bits(zg_j)
+    np.testing.assert_array_equal(ta.reduce(zg_t).numpy(), want)
+    np.testing.assert_array_equal(np.asarray(ja.reduce(zg_j)), want)
+    with pytest.raises(ValueError, match="Q % 128"):
+        ta.reduce_strided(zg_t)
+    lvl = level_table(rng, ja.n_dst, 128, 4)
+    kw = dict(n_chunks=ja.n_dst, R_q=ja.R3, R_c=128,
+              thresh=float(EM_DENOM_THRESH), max_lvl=4)
+    want_m = np.asarray(jsp._run_middle_stage(
+        zg_j, jnp.asarray(lvl), *middle_args(ja, jb, lambda t: t), **kw))
+    got_m = rm.route_middle(zg_t, torch.from_numpy(lvl),
+                            *middle_args(ta, tb, lambda t: t), **kw)
+    assert bits(got_m.numpy()) == bits(want_m)
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def test_cuda_wrappers_refuse_cpu_tensors(routes):
+    _, n, _, _, _, tpn = routes[128]
+    x = torch.zeros(n).reshape(-1, LANES)
+    with pytest.raises(ValueError, match="CUDA"):
+        rs.route_stage_cuda(x, tpn.s1_r1, tpn.s1_src, tpn.s1_row, tpn.s1_r2,
+                            None, tpn.n_src, 128, tpn.R1)
+    with pytest.raises(ValueError, match="CUDA"):
+        tp.tile_permute_cuda(x[:128], *[torch.zeros(1, dtype=torch.int8)] * 4,
+                             128, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        rm.route_middle_cuda(x, *[None] * 10, n_chunks=1, R_q=128, R_c=128,
+                             thresh=0.0, max_lvl=0)
+
+
+def test_strided_exchange_needs_whole_lane_tiles(routes):
+    _, _, _, _, _, tpn = routes[128]
+    import dataclasses
+
+    odd = dataclasses.replace(tpn, Q=tpn.Q + 64)
+    with pytest.raises(ValueError, match="Q % 128"):
+        odd.reduce_strided(torch.zeros(tpn.n_src * tpn.R1, LANES))
+
+
+def _skip_without_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tile_permute_kernel_bit_equal_to_plain_on_card(dtype):
+    _skip_without_card()
+    rng = np.random.default_rng(40)
+    perms = [rng.permutation(512 * LANES) for _ in range(3)]
+    plan = tsp.BatchTilePermute.build(
+        [tsp.DeviceTilePlan.build(p, 512) for p in perms], device="cuda")
+    x = torch.from_numpy(rng.normal(size=(3 * 512, LANES))).to(dtype).cuda()
+    before = tp.launch_count
+    got = plan(x)
+    torch.cuda.synchronize()
+    assert tp.launch_count == before + 1
+    args = (x, plan.r1, plan.r2, plan.src, plan.lane, 512, 3)
+    assert torch.equal(got.reshape(-1, LANES), tp.tile_permute_reference(*args))
+    with pytest.raises(TypeError):
+        plan(x.half())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cr", [128, 256])
+def test_route_stage_kernel_bit_equal_to_plain_on_card(cr):
+    _skip_without_card()
+    rng, n, out_idx, in_idx = random_route(41, 16, cr)
+    plan = tsp.GlobalRoute(out_idx, in_idx, n, chunk_rows=cr,
+                           device="cuda").plan
+    x = torch.from_numpy(rng.normal(size=n).astype(np.float32)).cuda()
+    mul = torch.from_numpy(rng.normal(size=n).astype(np.float32)).cuda()
+    before = rs.launch_count
+    y1 = plan.expand_y1(x, mul)
+    out_s = plan.reduce_strided(y1)
+    out_t = plan(x, mul)
+    torch.cuda.synchronize()
+    assert rs.launch_count == before + 4
+    cpu = plan_on_cpu(plan)
+    assert torch.equal(y1.cpu(), cpu.expand_y1(x.cpu(), mul.cpu()))
+    assert torch.equal(out_s, out_t)
+    want = np.zeros(n, np.float32)
+    want[out_idx] = (x * mul).cpu().numpy()[in_idx]
+    np.testing.assert_array_equal(out_s.cpu().numpy(), want)
+
+
+def plan_on_cpu(plan):
+    import dataclasses
+
+    return dataclasses.replace(plan, **{
+        k: None if getattr(plan, k) is None else getattr(plan, k).cpu()
+        for k in tsp.ROUTE_TABLES})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cr,dtype", [(128, torch.float32),
+                                      (256, torch.float32),
+                                      (512, torch.float32),
+                                      (256, torch.float64)])
+def test_middle_kernel_bit_equal_to_plain_on_card(cr, dtype):
+    """Chunks of 128 and 256 rows sit in shared memory in f32; 512 rows,
+    and 256 in f64, go through the scratch area in device memory."""
+    _skip_without_card()
+    rng, n, out_idx, in_idx = random_route(42, 8, cr)
+    fa, fb = tsp.build_route_pair(out_idx, in_idx, n, chunk_rows=cr,
+                                  device="cuda")
+    max_lvl = 6
+    lvl = torch.from_numpy(level_table(rng, fa.n_dst, cr, max_lvl)).cuda()
+    y = torch.from_numpy(
+        rng.normal(size=(fa.n_dst * fa.R3, LANES))).to(dtype).cuda()
+    mult = torch.from_numpy(rng.integers(
+        0, 4, size=(fa.n_dst * cr, LANES)).astype(np.float64)).to(dtype).cuda()
+    args = middle_args(fa, fb, lambda t: t)
+    kw = dict(n_chunks=fa.n_dst, R_q=fa.R3, R_c=cr,
+              thresh=float(EM_DENOM_THRESH), max_lvl=max_lvl)
+    before = rm.launch_count
+    for m in (None, mult):
+        for values in (y, fa.quota_view(y)):
+            got = rm.route_middle(values, lvl, *args, mult=m, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(
+                got, rm.route_middle_reference(values, lvl, *args, mult=m,
+                                               **kw))
+    assert rm.launch_count == before + 4
+
+
+def test_native_library_loads_once_under_threads(monkeypatch):
+    """The route tables are filled on a worker thread while the main thread
+    colors the tile permutes. Whichever gets to the native library first
+    builds and loads it; the other waits and never takes the pure-Python
+    path meanwhile (its colorings are valid but different, and slow)."""
+    import threading
+    import time
+
+    from oarfish_tpu_torch.kernels import build
+    from oarfish_tpu_torch.ops import permute_plan
+
+    real = build.host_library
+    calls = []
+
+    def slow_host_library(*args, **kwargs):
+        calls.append(args)
+        time.sleep(0.3)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(build, "host_library", slow_host_library)
+    monkeypatch.setattr(permute_plan, "_color_lib", None)
+    monkeypatch.setattr(permute_plan, "_color_tried", False)
+    got = []
+    threads = [threading.Thread(
+        target=lambda: got.append(permute_plan._get_color_lib()))
+        for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive()
+    assert len(calls) == 1
+    assert len(got) == 4 and all(g is got[0] for g in got)
