@@ -11,7 +11,7 @@ points a user calls. One JSON object per phase goes to standard output:
 
   env            card name and power limit, torch/CUDA versions, which
                  host helpers were built natively (all of them must be)
-  kernels        the four kernels built (one nvcc each, all started
+  kernels        the four kernel sources built (one nvcc each, all started
                  together), with build seconds
   k1_vs_plain    sorted-gather kernel vs its plain version on the bench
                  CSR (R=2,000,000 reads, T=200,000 transcripts, A~6M
@@ -21,20 +21,30 @@ points a user calls. One JSON object per phase goes to standard output:
                  seconds and geometry; tile permute, route stage and fused
                  middle each bit-equal in f32 to its plain version at the
                  plan's shapes; kernel, plain and (K2, K3) `index_select`
-                 times; the byte bounds
+                 times; the byte bounds. Then the replicate-axis arms of
+                 the route stage and the fused middle at 8 replicates: each
+                 bit-equal to its plain version and to 8 launches without
+                 the axis, with the same times and bounds (tables once,
+                 values 8 times)
   em_full_width  the same CSR as an AlignmentStore through
                  `perform_inference_and_write_output` on the card, f32:
-                 `--em-impl v4` with 8 bootstrap replicates, a second v4
-                 run (bit-identical, its plan out of the plan cache),
-                 `--em-impl pallas` with 8 replicates, `--em-impl segsum`
+                 `--em-impl v4` with 8 bootstrap replicates (one batched
+                 program: replicate 0 is held against a serial run with
+                 the same multiplicities), a second v4 run (bit-identical,
+                 its plan out of the plan cache), `--em-impl pallas` with 8
+                 replicates, `--em-impl segsum`
   cli_e2e        a collated BAM of the same scale through the CLI with
                  its defaults (cuda, auto -> v4), coverage model and
                  assignment probabilities on; then a smaller BAM through
                  the CLI with `--em-impl pallas`, and the sorted-gather
                  kernel against its plain version on that BAM's own plan
+  covmodel_device_vs_host  the first CLI run's BAM packed again: the device
+                 coverage model against the native host pass on that store
+                 (rtol 1e-12), with both times
   em_breakdown   only with --breakdown: the `pallas` and the `v4` m-step
-                 alone, and the loop with and without the host's
-                 per-iteration read of the stop flag
+                 alone and the batched v4 m-step of 8 replicates, and the
+                 loop with and without the host's per-iteration read of the
+                 stop flag
   {"kernels": [...]}   per kernel: launches on the main path (in all and
                  per phase), error, times and bound
   <card name>, <power limit>
@@ -45,7 +55,9 @@ just before and reads the counts just after, and each count must be exact:
 per m-step one sorted gather (`pallas`), or two tile permutes, two route
 stages and one fused middle (`v4`; four route stages and no middle for a
 layout without a level table), with one m-step per iteration plus the
-final one, per run and per bootstrap replicate of a batch.
+final one, per run and per batch of bootstrap replicates: a batch runs to
+its slowest replicate's count, all replicates in the same launches, which
+are counted a second time as launches of the replicate-axis arms.
 """
 
 from __future__ import annotations
@@ -79,13 +91,15 @@ from oarfish_tpu_torch.host.store import (
     _get_cov_lib,
 )
 from oarfish_tpu_torch.kernels import build as kernel_build
-from oarfish_tpu_torch.models.coverage import _get_lib as _get_covmodel_lib
+from oarfish_tpu_torch.models import coverage as covmodel_host
+from oarfish_tpu_torch.models import coverage_torch as covmodel_device
 from oarfish_tpu_torch.ops import balance, em_v4, permute_plan
 from oarfish_tpu_torch.ops import route_middle as rm
 from oarfish_tpu_torch.ops import route_stage as rs
 from oarfish_tpu_torch.ops import sorted_gather as sg
 from oarfish_tpu_torch.ops import tile_permute as tp
-from oarfish_tpu_torch.ops.bootstrap import BOOT_BATCH
+from oarfish_tpu_torch.ops.bootstrap import BOOT_BATCH, sample_multiplicities
+from oarfish_tpu_torch.ops.em import uniform_init
 from oarfish_tpu_torch.ops.em_fast import FastEmData
 from oarfish_tpu_torch.quant.bulk import perform_inference_and_write_output
 
@@ -98,31 +112,47 @@ FULL_READS, FULL_TXPS = 2_000_000, 200_000  # the bench shape
 SMALL_READS = 500_000  # the second CLI run (`--em-impl pallas`)
 EM_DENOM_THRESH = 1e-30
 
-# name -> (wrapper module holding `launch_count`, CUDA source, the Pallas
-# call it replaces in the JAX package)
+# name -> (wrapper module, its launch counter, CUDA source, the Pallas call
+# or kernel arm it replaces in the JAX package). The replicate-axis arms of
+# the route stage and the fused middle are entries of their own: their
+# counter counts, of the wrapper's launches, those with a replicate axis.
 KERNELS = {
-    "sorted_gather": (sg, "sorted_gather.cu", "ops/gather_pallas.py:156"),
-    "tile_permute": (tp, "tile_permute.cu", "ops/static_permute.py:119"),
-    "route_stage": (rs, "route_stage.cu", "ops/static_permute.py:771"),
-    "route_middle": (rm, "route_middle.cu", "ops/static_permute.py:984"),
+    "sorted_gather": (sg, "launch_count", "sorted_gather.cu",
+                      "ops/gather_pallas.py:156"),
+    "tile_permute": (tp, "launch_count", "tile_permute.cu",
+                     "ops/static_permute.py:119"),
+    "route_stage": (rs, "launch_count", "route_stage.cu",
+                    "ops/static_permute.py:771"),
+    "route_middle": (rm, "launch_count", "route_middle.cu",
+                     "ops/static_permute.py:984"),
+    "route_stage_replicates": (rs, "replicate_launch_count",
+                               "route_stage.cu", "ops/static_permute.py:608"),
+    "route_middle_replicates": (rm, "replicate_launch_count",
+                                "route_middle.cu",
+                                "ops/static_permute.py:782"),
 }
+ARMS = ("route_stage_replicates", "route_middle_replicates")
+REPLICATES = 8  # one bootstrap batch
 
 
 def reset_launch_counts() -> None:
-    for module, _, _ in KERNELS.values():
-        module.launch_count = 0
+    for module, counter, _, _ in KERNELS.values():
+        setattr(module, counter, 0)
 
 
 def launch_counts() -> dict:
-    return {name: module.launch_count
-            for name, (module, _, _) in KERNELS.items()}
+    return {name: getattr(module, counter)
+            for name, (module, counter, _, _) in KERNELS.items()}
 
 
-def v4_launches(m_steps: int, fused: bool) -> dict:
-    """Launches of `m_steps` routed m-steps."""
+def v4_launches(m_steps: int, fused: bool, batched_steps: int = 0) -> dict:
+    """Launches of `m_steps` routed m-steps, `batched_steps` of them those
+    of a batch of replicates on a layout that runs it as one program."""
     return {"sorted_gather": 0, "tile_permute": 2 * m_steps,
             "route_stage": (2 if fused else 4) * m_steps,
-            "route_middle": m_steps if fused else 0}
+            "route_middle": m_steps if fused else 0,
+            "route_stage_replicates": 2 * batched_steps,
+            "route_middle_replicates": batched_steps}
 
 
 def emit(phase: str, **fields) -> None:
@@ -313,13 +343,14 @@ def kernel_equals_plain(tab, base, lane, use_hi) -> float:
     return float((got - want).abs().max())
 
 
-def bit_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
-    """Hold a kernel's output bit for bit against its plain version's;
-    returns the largest absolute difference (0.0)."""
+def bit_equal(name: str, got: torch.Tensor, want: torch.Tensor,
+              against: str = "its plain version") -> float:
+    """Hold a kernel's output bit for bit against its plain version's (or
+    what `against` names); returns the largest absolute difference (0.0)."""
     torch.cuda.synchronize(got.device)
     assert got.shape == want.shape and got.dtype == want.dtype, name
     if not torch.equal(got, want):
-        raise AssertionError(f"{name} differs from its plain version")
+        raise AssertionError(f"{name} differs from {against}")
     return float((got - want).abs().max())
 
 
@@ -392,7 +423,7 @@ def phase_env() -> str:
         "bam_decoder": native.available(),
         "fmt": fmt_native.get_lib() is not None,
         "coverage": _get_cov_lib() is not None,
-        "covmodel": _get_covmodel_lib() is not None,
+        "covmodel": covmodel_host._get_lib() is not None,
         "euler_color": permute_plan._get_color_lib() is not None,
         "balance": balance.available(),
     }
@@ -409,12 +440,13 @@ def phase_env() -> str:
 
 
 def phase_kernels() -> None:
-    assert set(KERNELS) == set(kernel_build.CUDA_KERNELS)
+    sources = {source[:-3] for _, _, source, _ in KERNELS.values()}
+    assert sources == set(kernel_build.CUDA_KERNELS)
     t0 = time.time()
     kernel_build.build_cuda_libraries()
-    emit("kernels", kernels=list(KERNELS),
+    emit("kernels", kernels=sorted(sources),
          build_seconds={k: round(kernel_build.build_seconds[k], 3)
-                        for k in KERNELS},
+                        for k in sorted(sources)},
          build_wall_s=round(time.time() - t0, 3),
          nvcc=kernel_build.find_nvcc())
 
@@ -562,7 +594,7 @@ def phase_k2_k3_k4_vs_plain(csr, R, T, device) -> dict:
     y1 = rs.route_stage_cuda(*a1, mul=w_txp)
     err = bit_equal("route_stage expand_y1", y1,
                     rs.route_stage_reference(*a1, mul=w_txp))
-    idx = flat_index(lambda v: rs.route_stage_reference(
+    idx_expand = flat_index(lambda v: rs.route_stage_reference(
         v.reshape(-1, L), *a1[1:]), x.numel(), device)
     flat = x.reshape(-1)
     k3["expand_y1_mul"] = dict(
@@ -570,7 +602,7 @@ def phase_k2_k3_k4_vs_plain(csr, R, T, device) -> dict:
         ms=time_ms(lambda: rs.route_stage_cuda(*a1, mul=w_txp), device),
         plain_ms=time_ms(lambda: rs.route_stage_reference(*a1, mul=w_txp),
                          device, 5, 5),
-        library_ms=time_ms(lambda: flat.index_select(0, idx), device),
+        library_ms=time_ms(lambda: flat.index_select(0, idx_expand), device),
         **bound(nbytes(x, w_txp, y1, pa.s1_r1, pa.s1_src, pa.s1_row,
                        pa.s1_r2), y1.numel()))
     yq = values(pb.n_src * pb.R1, L)
@@ -585,14 +617,14 @@ def phase_k2_k3_k4_vs_plain(csr, R, T, device) -> dict:
     out3 = rs.route_stage_cuda(*a3)
     err = bit_equal(f"route_stage {tag}", out3,
                     rs.route_stage_reference(*a3))
-    idx = flat_index(lambda v: rs.route_stage_reference(
+    idx_reduce = flat_index(lambda v: rs.route_stage_reference(
         v.reshape(zq.shape), *a3[1:]), zq.numel(), device)
     flat = zq.reshape(-1)
     k3[tag] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: rs.route_stage_cuda(*a3), device),
         plain_ms=time_ms(lambda: rs.route_stage_reference(*a3), device, 5, 5),
-        library_ms=time_ms(lambda: flat.index_select(0, idx), device),
+        library_ms=time_ms(lambda: flat.index_select(0, idx_reduce), device),
         **bound(nbytes(zq, out3, pb.s3_r1, pb.s3_src, pb.s3_row, pb.s3_r2,
                        pb.s3_mask), 0))
     res["route_stage"] = k3
@@ -631,7 +663,88 @@ def phase_k2_k3_k4_vs_plain(csr, R, T, device) -> dict:
                 **bound(nbytes(zg, got, data.seg_id, m, *tables),
                         (3 if m is None else 4) * n_c))
     res["route_middle"] = k4
-    emit("k2_k3_k4_vs_plain", plan=plan, bit_equal=True, **res)
+
+    # The replicate-axis arms at one bootstrap batch: values (and `mult`)
+    # with a leading axis of 8, tables, level table and `mul` shared. Each
+    # is held bit for bit against its plain version and against 8 launches
+    # without the axis. Bound: tables once, values 8 times. Library: 8
+    # `index_select`s with the composed index.
+    if not (fused and strided):
+        raise RuntimeError(
+            "the bench plan does not take the fused middle with the strided "
+            "exchange: the replicate arms have no path to be measured on")
+    B = REPLICATES
+
+    def each(fn):
+        return torch.stack([fn(b) for b in range(B)])
+
+    def both(name, got, plain, single):
+        return max(bit_equal(name, got, plain),
+                   bit_equal(name, got, each(single),
+                             against=f"{B} launches without the axis"))
+
+    arm3 = {}
+    x8 = values(B, pa.n_src * CR, L)
+    a1b = (x8, *a1[1:])
+    y8 = rs.route_stage_cuda(*a1b, mul=w_txp)
+    err = both("route_stage expand_y1 x8", y8,
+               rs.route_stage_reference(*a1b, mul=w_txp),
+               lambda b: rs.route_stage_cuda(x8[b], *a1[1:], mul=w_txp))
+    flat8 = x8.reshape(B, -1)
+    arm3["expand_y1_mul"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: rs.route_stage_cuda(*a1b, mul=w_txp), device),
+        plain_ms=time_ms(lambda: rs.route_stage_reference(*a1b, mul=w_txp),
+                         device, 3, 3),
+        library_ms=time_ms(
+            lambda: [flat8[b].index_select(0, idx_expand) for b in range(B)],
+            device),
+        **bound(nbytes(x8, w_txp, y8, pa.s1_r1, pa.s1_src, pa.s1_row,
+                       pa.s1_r2), y8.numel()))
+    yq8 = values(B, pb.n_src * pb.R1, L)
+    a3b = (pb.quota_view(yq8), *a3[1:])
+    out8 = rs.route_stage_cuda(*a3b)
+    err = both("route_stage reduce_strided x8", out8,
+               rs.route_stage_reference(*a3b),
+               lambda b: rs.route_stage_cuda(pb.quota_view(yq8[b]), *a3[1:]))
+    flat8 = yq8.reshape(B, -1)
+    arm3["reduce_strided"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: rs.route_stage_cuda(*a3b), device),
+        plain_ms=time_ms(lambda: rs.route_stage_reference(*a3b), device, 3, 3),
+        library_ms=time_ms(
+            lambda: [flat8[b].index_select(0, idx_reduce) for b in range(B)],
+            device),
+        **bound(nbytes(yq8, out8, pb.s3_r1, pb.s3_src, pb.s3_row, pb.s3_r2,
+                       pb.s3_mask), 0))
+    res["route_stage_replicates"] = arm3
+    del x8, yq8, out8, flat8
+
+    arm4 = {}
+    zg8 = pa.quota_view(y8)
+    mult8 = torch.as_tensor(
+        rng.multinomial(R, np.full(R, 1.0 / R), size=B)[:, order],
+        device=device).float()
+    am8 = (zg8, *am[1:])
+    for tag, m in (("point", None),
+                   ("replicate", em_v4.mult_slots(data, mult8))):
+        got = rm.route_middle_cuda(*am8, mult=m)
+        err = both(
+            f"route_middle {tag} x8", got,
+            rm.route_middle_reference(*am8, mult=m),
+            lambda b: rm.route_middle_cuda(
+                zg8[b], *am[1:], mult=None if m is None else m[b]))
+        assert torch.isfinite(got).all()
+        arm4[tag] = dict(
+            max_abs_err=err,
+            ms=time_ms(lambda: rm.route_middle_cuda(*am8, mult=m), device),
+            plain_ms=time_ms(
+                lambda: rm.route_middle_reference(*am8, mult=m), device, 2, 2),
+            library_ms=None,
+            **bound(nbytes(zg8, got, data.seg_id, m, *tables),
+                    (3 if m is None else 4) * n_c * B))
+    res["route_middle_replicates"] = arm4
+    emit("k2_k3_k4_vs_plain", plan=plan, bit_equal=True, replicates=B, **res)
     return dict(plan=plan, **res)
 
 
@@ -671,19 +784,20 @@ def phase_em_full_width(csr, R, T, device, tmp: Path, capture, fused: bool):
         impl_ran, iters, em_s = capture.em[n_em]
         assert impl_ran == impl, (impl_ran, impl)
         # one m-step per iteration and the final one; a batch of replicates
-        # runs to its slowest replicate's count, every replicate of it
-        # through its own launches (v4) or all in one launch (pallas)
+        # runs to its slowest replicate's count, all replicates of it in
+        # the same launches (the bench plan is one that v4 batches so)
         m_steps = iters + 1
+        batched = 0
         boot_s = boot_iters = None
         if boots:
             n_reps, boot_s, boot_iters = capture.boot[n_boot]
             assert n_reps == boots == len(boot_iters) <= BOOT_BATCH
-            m_steps += (max(boot_iters) + 1) * (boots if impl == "v4" else 1)
+            batched = max(boot_iters) + 1
         want = dict.fromkeys(KERNELS, 0)
         if impl == "pallas":
-            want["sorted_gather"] = m_steps
+            want["sorted_gather"] = m_steps + batched
         elif impl == "v4":
-            want = v4_launches(m_steps, fused)
+            want = v4_launches(m_steps + batched, fused, batched)
         assert launched == want, (impl, launched, want)
         assert np.isfinite(counts).all() and counts.shape == (T,)
         assert np.array_equal(read_quant(str(tmp / tag) + ".quant"), counts)
@@ -700,12 +814,14 @@ def phase_em_full_width(csr, R, T, device, tmp: Path, capture, fused: bool):
     total = dict.fromkeys(KERNELS, 0)
     runs = {}
     counts = {}
-    for tag, impl, boots in (("v4", "v4", 8), ("v4_again", "v4", 0),
-                             ("pallas", "pallas", 8), ("segsum", "segsum", 0)):
+    for tag, impl, boots in (("v4", "v4", REPLICATES), ("v4_again", "v4", 0),
+                             ("pallas", "pallas", REPLICATES),
+                             ("segsum", "segsum", 0)):
         counts[tag], runs[tag] = run(tag, impl, boots)
         for k, n in runs[tag]["launches"].items():
             total[k] += n
     assert all(total[k] > 0 for k in KERNELS), total
+    assert runs["v4"]["launches"]["route_middle_replicates"] > 0
     assert not capture.warnings[warn0:], capture.warnings[warn0:]
     # the first run built the plan and stored it; the second took it from
     # the plan cache and must still give the same bits
@@ -723,14 +839,47 @@ def phase_em_full_width(csr, R, T, device, tmp: Path, capture, fused: bool):
 
     reps = pq.read_table(str(tmp / "v4") + ".infreps.pq")
     reps = np.stack([np.asarray(reps[c]) for c in reps.column_names])
-    assert reps.shape == (8, T) and np.isfinite(reps).all()
+    assert reps.shape == (REPLICATES, T) and np.isfinite(reps).all()
     rep_mass = float(np.abs(reps.sum(axis=1) - R).max() / R)
     assert rep_mass < 1e-5, f"replicate mass off by {rep_mass}"
+
+    # replicate 0 of the batched program against a serial run with the same
+    # multiplicities (the run's seed and defaults; the plan comes out of the
+    # plan cache): the same number of iterations. The kernels give every
+    # replicate the bits of a single launch and on the CPU the whole run is
+    # bit-equal (tests); on the card torch's `sum` splits a row-sum
+    # reduction by its number of outputs, so the glue of a batch adds in
+    # another order and a thousand f32 iterations of a problem with flat
+    # directions drift apart: held as one EM against another in this script,
+    # by L1 / reads (1e-4; between formulations it is 2e-3), and reported
+    # with the largest difference and whether the bits agree
+    data, order = em_v4.EmV4Data.build(txp_id, w, boundaries, T,
+                                       device=device)
+    defaults = Args()
+    mult0 = sample_multiplicities(
+        np.random.default_rng(0), REPLICATES, R)[0, order]
+    t0 = time.time()
+    serial, serial_iters = em_v4.run_em_v4(
+        data, uniform_init(data, torch.float32), defaults.max_em_iter,
+        defaults.convergence_thresh,
+        multiplicity=torch.as_tensor(mult0, device=device).float())
+    serial = serial.double().cpu().numpy()
+    serial_s = time.time() - t0
+    batch_iters = runs["v4"]["bootstrap_iterations"]
+    assert int(serial_iters) == batch_iters[0], (int(serial_iters), batch_iters)
+    serial_l1 = float(np.abs(reps[0] - serial).sum() / R)
+    assert serial_l1 < 1e-4, f"replicate 0 vs serial run L1/R = {serial_l1}"
+    del data
 
     out = dict(R=R, T=T, A=A, dtype="float32", **runs, launches=total,
                mass_rel_err=float(mass_err), l1_over_R_vs_segsum=l1["segsum"],
                l1_over_R_vs_pallas=l1["pallas"], bit_identical_rerun=True,
-               replicate_mass_rel_err=rep_mass)
+               replicate_mass_rel_err=rep_mass,
+               replicate0_vs_serial=dict(
+                   iterations=int(serial_iters), serial_s=round(serial_s, 3),
+                   bit_equal=bool(np.array_equal(reps[0], serial)),
+                   l1_over_R=serial_l1,
+                   max_abs_diff=float(np.abs(reps[0] - serial).max())))
     emit("em_full_width", **out)
     return out, total
 
@@ -768,7 +917,7 @@ def phase_cli_e2e(R, T, device, tmp: Path, capture):
     gen_s = time.time() - t0
     # the defaults: cuda, and `auto`, which takes v4 at this size
     n_auto, n_route = len(capture.auto), len(capture.routing)
-    _, counts, kept, meta, (impl, iters, em_s), launched, wall = run_cli(
+    argv, counts, kept, meta, (impl, iters, em_s), launched, wall = run_cli(
         bam, tmp / "cli", [], device, capture)
     assert counts.shape == (T,)
     assert capture.auto[n_auto:] == ["v4"], capture.auto[n_auto:]
@@ -785,6 +934,7 @@ def phase_cli_e2e(R, T, device, tmp: Path, capture):
         routing_s=capture.routing[n_route], launches=launched,
         mass_rel_err=float(abs(counts.sum() - kept) / kept),
     )
+    phase_covmodel_device_vs_host(bam, argv, kept, device)
     bam.unlink()
 
     # an earlier path at a smaller size: `--em-impl pallas`, and the
@@ -824,6 +974,70 @@ def phase_cli_e2e(R, T, device, tmp: Path, capture):
                      check_s=round(time.time() - t0, 2)))
     emit("cli_e2e", **res)
     return res, {k: launched[k] + launched2[k] for k in KERNELS}
+
+
+def phase_covmodel_device_vs_host(bam: Path, argv, kept: int, device) -> dict:
+    """The coverage model of the CLI run's own store: `models/coverage_torch`
+    on the card against the native host pass, rtol 1e-12 on the per-bin
+    probabilities and on the per-alignment coverage probabilities; the
+    seconds of both (the device's with its copies to and from the card).
+    The device model's prefix sums are the host's serial ones."""
+    args = to_args(build_parser().parse_args(argv))
+    t0 = time.time()
+    _, store, coverage, _ = pack_bam_fast(
+        bam, resolve_filters(args), bin_width=args.bin_width,
+        threads=max(args.threads, 1),
+    )
+    pack_s = time.time() - t0
+    assert store.num_reads == kept
+
+    def fresh():
+        cov = TranscriptCoverage(coverage.txp_len, args.bin_width)
+        cov.bins[:] = coverage.bins
+        cov.total_weight[:] = coverage.total_weight
+        return cov
+
+    def host():
+        cov = fresh()
+        t0 = time.time()
+        flat = covmodel_host.logistic_prob(cov, args.growth_rate,
+                                           threads=args.threads)
+        covmodel_host.normalize_read_probs(store, cov, flat, args.bin_width,
+                                           threads=args.threads)
+        return time.time() - t0, flat, cov.bins, store.cov_prob.copy()
+
+    def on_device():
+        cov = fresh()
+        torch.cuda.synchronize(device)
+        t0 = time.time()
+        flat = covmodel_device.logistic_prob_torch(cov, args.growth_rate,
+                                                   device=device)
+        covmodel_device.normalize_read_probs_torch(
+            store, cov, flat, args.bin_width, device=device)
+        torch.cuda.synchronize(device)
+        return time.time() - t0, flat, cov.bins, store.cov_prob.copy()
+
+    def rel_dev(got, want):
+        nz = want != 0
+        return float((np.abs(got[nz] - want[nz]) / np.abs(want[nz])).max())
+
+    host_s, flat_h, bins_h, prob_h = host()
+    first_s, flat_d, bins_d, prob_d = on_device()
+    np.testing.assert_allclose(flat_d, flat_h, rtol=1e-12, atol=0)
+    np.testing.assert_allclose(bins_d, bins_h, rtol=1e-15, atol=0)
+    np.testing.assert_allclose(prob_d, prob_h, rtol=1e-12, atol=0)
+    device_s, _, _, again = on_device()
+    assert np.array_equal(again, prob_d), "two device passes differ"
+    res = dict(
+        alignments=int(store.num_alignments), reads=int(store.num_reads),
+        bins=int(len(flat_h)), prefix_sum_max=float(flat_h.sum()),
+        repack_s=round(pack_s, 2), host_s=host_s, host_threads=args.threads,
+        device_first_s=first_s, device_s=device_s, rtol=1e-12,
+        max_rel_dev_bin_prob=rel_dev(flat_d, flat_h),
+        max_rel_dev_cov_prob=rel_dev(prob_d, prob_h),
+    )
+    emit("covmodel_device_vs_host", **res)
+    return res
 
 
 def measure_m_step(tag, m_step, init, device, profile_dir) -> dict:
@@ -874,13 +1088,14 @@ def measure_m_step(tag, m_step, init, device, profile_dir) -> dict:
         res["m_step_launches"] = sum(e.count for e in rows) / 20
         res["m_step_device_ms"] = sum(
             e.device_time_total for e in rows) / 20 / 1e3
+        res["device_us_by_kernel"] = {
+            e.key[:48]: round(e.device_time_total / 20, 1) for e in rows[:10]}
     return res
 
 
 def phase_em_breakdown(csr, T, device, profile_dir) -> dict:
     """Where an EM iteration's time goes at full width (f32), for the
     `pallas` layout and for the routed `v4` one, in one process."""
-    from oarfish_tpu_torch.ops.em import uniform_init
     from oarfish_tpu_torch.ops.em_fast import _m_step_fast
 
     txp_id, w, boundaries, A = csr
@@ -905,6 +1120,13 @@ def phase_em_breakdown(csr, T, device, profile_dir) -> dict:
     replicate_step = em_v4.make_m_step(v4, mult1)
     res["v4"]["m_step_replicate_ms"] = time_ms(
         lambda: replicate_step(ext), device)
+    # one bootstrap batch as one program
+    mult8 = torch.ones((REPLICATES, v4.row_space_r), device=device)
+    res["v4_batch"] = dict(
+        replicates=REPLICATES,
+        **measure_m_step("v4_batch", em_v4.make_m_step(v4, mult8),
+                         ext.expand(REPLICATES, -1).contiguous(), device,
+                         profile_dir))
     emit("em_breakdown", **res)
     return res
 
@@ -955,9 +1177,12 @@ def main(argv=None) -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
     def entry(name, measured, **extra):
-        module, source, replaces = KERNELS[name]
+        _, _, source, replaces = KERNELS[name]
         total = launches_em[name] + launches_cli[name]
-        if launches_em[name] == 0 or launches_cli[name] == 0:
+        # the CLI runs draw no bootstrap replicates: the arms are launched
+        # by the 8 replicates of `em_full_width`
+        paths = (launches_em,) if name in ARMS else (launches_em, launches_cli)
+        if any(path[name] == 0 for path in paths):
             raise AssertionError(f"a main path never launched {name}")
         return {
             "name": name, "route": "cuda",
@@ -1002,6 +1227,19 @@ def main(argv=None) -> int:
                 v["max_abs_err"] for v in k4.values())),
             measured_on="point estimate (no mult)",
             **also(k4["replicate"], "replicate")))
+    arm3, arm4 = k234["route_stage_replicates"], k234["route_middle_replicates"]
+    kernels.append(entry(
+        "route_stage_replicates",
+        dict(arm3["expand_y1_mul"], max_abs_err=max(
+            v["max_abs_err"] for v in arm3.values())),
+        replicates=REPLICATES, measured_on="expand_y1 with mul",
+        **also(arm3["reduce_strided"], "reduce_strided")))
+    kernels.append(entry(
+        "route_middle_replicates",
+        dict(arm4["point"], max_abs_err=max(
+            v["max_abs_err"] for v in arm4.values())),
+        replicates=REPLICATES, measured_on="no mult",
+        **also(arm4["replicate"], "replicate")))
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("total", seconds=round(time.time() - t_start, 1))
     print(smi, flush=True)

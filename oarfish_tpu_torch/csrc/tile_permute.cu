@@ -10,6 +10,10 @@
 // its target has no per-element gather. Here each thread follows the three
 // table lookups for one output element and loads the value.
 //
+// The JAX kernel has no replicate axis (`vmap` adds a grid axis there). A
+// batch of B replicates is B * n_tables tiles here, tile j taking the tables
+// of tile j % n_tables: one launch for all replicates.
+//
 // Bound: bytes. Per element the kernel reads 4 table bytes (r1, r2, src,
 // lane) and one value and writes one value; there is no arithmetic. The
 // tiles of the EM (one tile of some thousand rows) fit the L2 cache, so
@@ -30,10 +34,11 @@ constexpr int THREADS = 256;
 template <typename T>
 __global__ void tile_permute_kernel(
     const T* __restrict__ x,  // [n_tiles * R, 128]
-    route::StageTables t,     // r1, r2 [n_tiles, R, 128]; src, row = lane
-                              // [n_tiles, R/128, 128, 128]
+    route::StageTables t,     // r1, r2 [n_tables, R, 128]; src, row = lane
+                              // [n_tables, R/128, 128, 128]
     T* __restrict__ out,      // [n_tiles * R, 128]
-    int64_t n_out)            // n_tiles * R * 128
+    int64_t n_out,            // n_tiles * R * 128
+    int n_tables)             // n_tiles is a multiple of it
 {
     const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (idx >= n_out) return;
@@ -42,22 +47,23 @@ __global__ void tile_permute_kernel(
     const int rem = (int)(idx - j * per_tile);
     int ri, li;
     T v = T(0);
-    if (route::stage_source(t, j, rem >> 7, rem & 127, ri, li))
+    if (route::stage_source(t, j % n_tables, rem >> 7, rem & 127, ri, li))
         v = x[((int64_t)j * t.R_in + ri) * route::LANES + li];
     out[idx] = v;
 }
 
 template <typename T>
 int launch(const void* x, const void* r1, const void* r2, const void* src,
-           const void* lane, void* out, int n_tiles, int rows, void* stream)
+           const void* lane, void* out, int n_tiles, int rows, int n_tables,
+           void* stream)
 {
     const int64_t n_out = (int64_t)n_tiles * rows * route::LANES;
-    if (n_out == 0) return (int)cudaSuccess;
+    if (n_out == 0 || n_tables <= 0) return (int)cudaSuccess;
     route::StageTables t{(const int8_t*)r1, (const int8_t*)src,
                          (const int8_t*)lane, (const int8_t*)r2, rows, rows};
     const unsigned grid = (unsigned)((n_out + THREADS - 1) / THREADS);
     tile_permute_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        (const T*)x, t, (T*)out, n_out);
+        (const T*)x, t, (T*)out, n_out, n_tables);
     return (int)cudaGetLastError();
 }
 
@@ -67,16 +73,18 @@ extern "C" {
 
 int tile_permute_f32(const void* x, const void* r1, const void* r2,
                      const void* src, const void* lane, void* out,
-                     int n_tiles, int rows, void* stream)
+                     int n_tiles, int rows, int n_tables, void* stream)
 {
-    return launch<float>(x, r1, r2, src, lane, out, n_tiles, rows, stream);
+    return launch<float>(x, r1, r2, src, lane, out, n_tiles, rows, n_tables,
+                     stream);
 }
 
 int tile_permute_f64(const void* x, const void* r1, const void* r2,
                      const void* src, const void* lane, void* out,
-                     int n_tiles, int rows, void* stream)
+                     int n_tiles, int rows, int n_tables, void* stream)
 {
-    return launch<double>(x, r1, r2, src, lane, out, n_tiles, rows, stream);
+    return launch<double>(x, r1, r2, src, lane, out, n_tiles, rows, n_tables,
+                      stream);
 }
 
 }  // extern "C"

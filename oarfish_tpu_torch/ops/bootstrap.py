@@ -7,7 +7,9 @@ Because the M step is linear in read occurrences, a with-replacement
 index sample is exactly a per-read multiplicity vector
 `c ~ Multinomial(R, 1/R)`; the device EM takes that vector directly and
 runs a batch of replicates as one loop, each replicate frozen at its own
-convergence point (see `em.em_loop`).
+convergence point (see `em.em_loop`). What a batch costs is the
+formulation's business: the routed v4 EM runs it as one program
+(`em_v4._m_step_v4_batch`).
 
 The draw stays in NumPy so that one `--seed` gives the same replicates
 here and in the JAX package.
@@ -36,6 +38,16 @@ def sample_multiplicities(
     ).astype(np.float64)
 
 
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """Start the copy of a device tensor into pinned host memory and return
+    the host tensor; it holds the values once the device has been
+    synchronized. A CPU tensor is returned as it is."""
+    if not t.is_cuda:
+        return t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return host.copy_(t, non_blocking=True)
+
+
 def run_replicates(
     run: Callable[[torch.Tensor, torch.Tensor],
                   Tuple[torch.Tensor, torch.Tensor]],
@@ -46,15 +58,22 @@ def run_replicates(
     """Feed `mult` ([B, R], host) to `run(init[b, T], mult[b, R]) ->
     (counts[b, T], niter[b])` in batches of at most `batch` replicates;
     returns ([B, T] f64 counts, [B] iterations) on the host. Freezing is
-    per replicate, so the batch size does not change any replicate's
-    result; a batch takes as many m-steps as its slowest replicate."""
-    out, niters = [], []
+    per replicate, so the batch size does not change what a replicate
+    computes (on the card the order of a formulation's batched sums may
+    depend on it, and with it the last bits); a batch takes as many m-steps
+    as its slowest replicate. The
+    last batch is as short as it comes. Each batch's results stay on the
+    device until the copy into pinned host memory that is started behind
+    them, and are read only after the last batch has been run."""
+    pending = []
     for b0 in range(0, len(mult), batch):
         m = torch.as_tensor(mult[b0:b0 + batch], device=init.device).to(init.dtype)
         counts, niter = run(init.expand(m.shape[0], -1), m)
-        out.append(counts.double().cpu().numpy())
-        niters.append(niter.cpu().numpy())
-    return np.concatenate(out, axis=0), np.concatenate(niters, axis=0)
+        pending.append((_to_host(counts.double()), _to_host(niter)))
+    if init.is_cuda:
+        torch.cuda.synchronize(init.device)
+    return (np.concatenate([c.numpy() for c, _ in pending], axis=0),
+            np.concatenate([n.numpy() for _, n in pending], axis=0))
 
 
 def bootstrap(

@@ -38,11 +38,20 @@ Semantics match the reference serial EM (`em.rs:87-255`) exactly as
 glue's sums (`_row_sums`, the big-transcript `cumsum`) are taken in
 torch's order, so a whole EM agrees with the JAX package's to tolerance.
 
-Not ported: the in-kernel replicate axis and the batched program
-(`_m_step_v4_batch`, `run_em_v4_batch*`: replicates are a loop here),
-`V4Prebuild`, the envelope / canonical-shape code, the rectangular
-rebuild, and the environment switches of the JAX package's A/B work
-(each one's default is taken).
+A batch of bootstrap replicates is one program: the glue takes a leading
+replicate axis and `_m_step_v4_batch` sends all replicates through one
+launch of each kernel (the replicate arms of `route_stage.py` and
+`route_middle.py`), on a layout with the fused middle and the strided
+exchange. The JAX package keeps that arm behind a switch and batches with
+`vmap` otherwise; here it is taken wherever it applies, and any other
+layout runs the replicates one after another (`_m_step_v4_b`). The
+counterparts of `run_em_v4_batch` / `run_em_v4_batch_squarem` are
+`run_em_v4` / `run_em_v4_squarem` with `init` `[B, T]`.
+
+Not ported: `V4Prebuild`, the envelope / canonical-shape code, the
+rectangular rebuild, the environment switches of the JAX package's A/B
+work (each one's default is taken), and the sub-batches of four replicates
+that fit another memory budget.
 """
 
 from __future__ import annotations
@@ -1022,10 +1031,12 @@ def _row_sources(shapes, starts, total_rows: int) -> np.ndarray:
 
 
 def _row_sums(slots: torch.Tensor, shapes, starts) -> torch.Tensor:
-    """Per-row sums in the column-major layout: flat [sum rows_pad],
-    position = bucket row index (pads sum to zero). The bucket views come
-    from one `split` of the slot space into 128-lane rows."""
-    rows = slots.view(-1, LANES)
+    """Per-row sums in the column-major layout: `slots` `[..., n]` ->
+    `[..., sum rows_pad]`, position = bucket row index (pads sum to zero);
+    leading axes (replicates) are kept. The bucket views come from one
+    `split` of the slot space into 128-lane rows."""
+    lead = slots.shape[:-1]
+    rows = slots.reshape(*lead, -1, LANES)
     sizes, buckets = [], []
     pos = 0
     for (rows_pad, K), start in zip(shapes, starts):
@@ -1036,62 +1047,70 @@ def _row_sums(slots: torch.Tensor, shapes, starts) -> torch.Tensor:
         sizes.append(g * K)
         buckets.append((g, K))
         pos = r0 + g * K
-    if rows.shape[0] > pos:
-        sizes.append(rows.shape[0] - pos)
+    if rows.shape[-2] > pos:
+        sizes.append(rows.shape[-2] - pos)
         buckets.append(None)
-    sums = [piece.view(*gk, LANES).sum(dim=1)
-            for piece, gk in zip(torch.split(rows, sizes), buckets)
+    sums = [piece.view(*lead, *gk, LANES).sum(dim=-2)
+            for piece, gk in zip(torch.split(rows, sizes, dim=-2), buckets)
             if gk is not None]
     if not sums:
-        return slots.new_zeros(0)
-    return torch.cat(sums).view(-1)
+        return slots.new_zeros((*lead, 0))
+    return torch.cat(sums, dim=-2).reshape(*lead, -1)
 
 
 def _row_broadcast(values: Sequence[torch.Tensor],
                    row_src: torch.Tensor) -> torch.Tensor:
     """Inverse of `_row_sums`: expand one value per bucket row (`values`,
-    concatenated) across its K column-major slots, zeros outside the
-    buckets. One gather of 128-lane rows by the layout's static
-    `_row_sources`."""
-    table = torch.cat([*values, values[0].new_zeros(LANES)]).view(-1, LANES)
-    return table.index_select(0, row_src).view(-1)
+    concatenated along the last axis) across its K column-major slots,
+    zeros outside the buckets. One gather of 128-lane rows by the layout's
+    static `_row_sources`; leading axes (replicates) are kept."""
+    lead = values[0].shape[:-1]
+    table = torch.cat([*values, values[0].new_zeros((*lead, LANES))], dim=-1)
+    table = table.view(*lead, -1, LANES)
+    return table.index_select(-2, row_src).reshape(*lead, -1)
 
 
 def _prev_slots(data: EmV4Data, prev: torch.Tensor) -> torch.Tensor:
-    """Front glue: prev padded to t_space -> prev in the transcript slot
-    layout, zero-tailed to the route pad (steps 1-2 of the m-step); the
-    * w_txp product is fused into the expand kernel of p_a."""
+    """Front glue: prev padded to t_space (`[t_space]` or `[B, t_space]`)
+    -> prev in the transcript slot layout, zero-tailed to the route pad
+    (steps 1-2 of the m-step); the * w_txp product is fused into the
+    expand kernel of p_a."""
     # deliver prev to transcript rows (tiny static tile permute)
     pr = data.t_in(prev)
-    values = [pr[: data.row_space_s]]
+    values = [pr[..., : data.row_space_s]]
     if data.big_rows_pad:
-        pr_big = pr[data.row_space_s : data.row_space_s + data.n_big]
-        values.append(pr_big.index_select(0, data.big_row_of_txp))
+        pr_big = pr[..., data.row_space_s : data.row_space_s + data.n_big]
+        values.append(pr_big.index_select(-1, data.big_row_of_txp))
     return _row_broadcast(values, data.t_row_src)
 
 
 def _txp_tail(data: EmV4Data, inc_t: torch.Tensor) -> torch.Tensor:
-    """Back glue: transcript-layout increments -> curr in t_space (row
-    sums, big-transcript second level, output tile permute)."""
+    """Back glue: transcript-layout increments (`[n]` or `[B, n]`) -> curr
+    in t_space (row sums, big-transcript second level, output tile
+    permute)."""
+    lead = inc_t.shape[:-1]
     sums = _row_sums(inc_t, *data.txp_buckets)
-    parts = [sums[: data.row_space_s]]
+    parts = [sums[..., : data.row_space_s]]
     n = data.row_space_s
     if data.big_rows_pad:
-        big_rows = sums[data.row_space_s :]
-        cs = torch.cat([inc_t.new_zeros(1), torch.cumsum(big_rows, dim=0)])
+        big_rows = sums[..., data.row_space_s :]
+        cs = torch.cat([inc_t.new_zeros((*lead, 1)),
+                        torch.cumsum(big_rows, dim=-1)], dim=-1)
         o = data.big_row_offsets
-        parts.append(cs.index_select(0, o[1:]) - cs.index_select(0, o[:-1]))
+        parts.append(cs.index_select(-1, o[1:]) - cs.index_select(-1, o[:-1]))
         n += data.n_big
     # pad positions route only zeros and stay zero every iteration
-    parts.append(inc_t.new_zeros(data.t_space - n))
-    return data.t_out(torch.cat(parts))
+    parts.append(inc_t.new_zeros((*lead, data.t_space - n)))
+    return data.t_out(torch.cat(parts, dim=-1))
 
 
 def mult_slots(data: EmV4Data, multiplicity: torch.Tensor) -> torch.Tensor:
-    """Per-row multiplicities ([row_space_r], in `read_order`) broadcast
-    to the read slot layout `[n_dst*CR, 128]` the fused middle takes.
-    Static over a run: made once, outside the loop."""
-    return _row_broadcast([multiplicity], data.r_row_src).view(-1, LANES)
+    """Per-row multiplicities (`[row_space_r]`, or `[B, row_space_r]` for B
+    replicates, in `read_order`) broadcast to the read slot layout
+    `[n_dst*CR, 128]` (`[B, n_dst*CR, 128]`) the fused middle takes. Static
+    over a run: made once, outside the loop."""
+    slots = _row_broadcast([multiplicity], data.r_row_src)
+    return slots.view(*multiplicity.shape[:-1], -1, LANES)
 
 
 def _middle_fused(data: EmV4Data, prev_slots: torch.Tensor,
@@ -1111,16 +1130,23 @@ def _middle_fused(data: EmV4Data, prev_slots: torch.Tensor,
         zg = pa.quota_view(pa.expand_y1(prev_slots, mul=data.w_txp))
     else:
         zg = pa.expand(prev_slots, mul=data.w_txp)
-    y1b = route_middle(
+    y1b = _route_middle(data, zg, mult_sl)
+    if strided:
+        return pb.reduce_strided(y1b, sliced=False)
+    zgb = y1b.reshape(pb.n_src, pb.n_dst, pb.Q).transpose(0, 1).contiguous()
+    return pb.reduce(zgb.reshape(pb.n_dst * pb.R3, LANES), sliced=False)
+
+
+def _route_middle(data: EmV4Data, zg: torch.Tensor,
+                  mult_sl: Optional[torch.Tensor]) -> torch.Tensor:
+    """The fused middle kernel on this layout's tables."""
+    pa, pb = data.p_a, data.p_b
+    return route_middle(
         zg, data.seg_id, pa.s3_r1, pa.s3_src, pa.s3_row, pa.s3_r2,
         pa.s3_mask, pb.s1_r1, pb.s1_src, pb.s1_row, pb.s1_r2,
         n_chunks=pa.n_dst, R_q=pa.R3, R_c=pa.chunk_rows,
         thresh=float(EM_DENOM_THRESH), max_lvl=data.max_lvl, mult=mult_sl,
     )
-    if strided:
-        return pb.reduce_strided(y1b, sliced=False)
-    zgb = y1b.reshape(pb.n_src, pb.n_dst, pb.Q).transpose(0, 1).contiguous()
-    return pb.reduce(zgb.reshape(pb.n_dst * pb.R3, LANES), sliced=False)
 
 
 def _middle_unfused(data: EmV4Data, prev_slots: torch.Tensor,
@@ -1154,32 +1180,74 @@ def _m_step_v4(data: EmV4Data, prev: torch.Tensor,
     return _txp_tail(data, inc_t)
 
 
+def _batch_eligible(data: EmV4Data) -> bool:
+    """Whether a batch of replicates can be one launch a stage: the
+    replicate arms cover the default path, the fused middle with the
+    strided exchange."""
+    return data.seg_id is not None and data.p_a.Q % LANES == 0
+
+
+def _m_step_v4_batch(data: EmV4Data, prev_b: torch.Tensor,
+                     mult_b: Optional[torch.Tensor] = None,
+                     mult_sl_b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The m-step of B replicates as one program: `prev_b` `[B, t_space]`
+    -> `[B, t_space]`, with one launch of the expand stage, the fused
+    middle and the reduce stage (and of each tile permute) for all
+    replicates, the routing tables and the level table read once a launch.
+    `mult_b` is `[B, row_space_r]` in `read_order`, or already in the slot
+    layout as `mult_sl_b` (`mult_slots`). Every replicate comes out as
+    `_m_step_v4` gives it."""
+    pa, pb = data.p_a, data.p_b
+    if mult_b is not None and mult_sl_b is None:
+        mult_sl_b = mult_slots(data, mult_b)
+    y1 = pa.expand_y1_batch(_prev_slots(data, prev_b), mul=data.w_txp)
+    y1b = _route_middle(data, pa.quota_view(y1), mult_sl_b)
+    return _txp_tail(data, pb.reduce_strided_batch(y1b, sliced=False))
+
+
+_loop_logged = False
+
+
+def _m_step_v4_b(data: EmV4Data, prev_b: torch.Tensor,
+                 mult_b: Optional[torch.Tensor] = None,
+                 mult_sl_b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The m-step of B replicates: one program where the layout allows it,
+    else (unfused middle, transposed exchange) one replicate after
+    another, each through its own launches. Multiplicities as in
+    `_m_step_v4_batch`."""
+    global _loop_logged
+    if _batch_eligible(data):
+        return _m_step_v4_batch(data, prev_b, mult_b, mult_sl_b)
+    if not _loop_logged:
+        _loop_logged = True
+        log.info("v4 layout without the %s: replicates of a batch run one "
+                 "after another",
+                 "fused middle" if data.seg_id is None else "strided exchange")
+
+    def of(t, b):
+        return None if t is None else t[b]
+
+    return torch.stack([
+        _m_step_v4(data, prev_b[b], of(mult_b, b), of(mult_sl_b, b))
+        for b in range(prev_b.shape[0])])
+
+
 def make_m_step(data: EmV4Data, multiplicity: Optional[torch.Tensor]):
-    """The m-step of a run as a function of `prev` (`[t_space]` or
-    `[B, t_space]`). A batch of replicates is a loop: each replicate is
-    its own launches, with its own multiplicities (`[B, row_space_r]`)."""
-    fused = data.seg_id is not None
-
-    def prepared(m):
-        """(multiplicity, mult_sl) as `_m_step_v4` takes them; the slot
-        layout of the fused path is made once, here."""
-        return (None, mult_slots(data, m)) if fused else (m, None)
-
-    if multiplicity is None:
-        per_replicate = None
-        shared = (None, None)
-    else:
+    """The m-step of a run as a function of `prev`: `[t_space]` with
+    `multiplicity` `[row_space_r]` or none, or `[B, t_space]` with
+    `[B, row_space_r]` or none for a batch of replicates. The fused path's
+    slot layout of the multiplicities is made once, here."""
+    rows = slots = None
+    if multiplicity is not None:
         mult = multiplicity.to(data.w_txp.dtype)
-        per_replicate = ([prepared(m) for m in mult] if mult.dim() == 2
-                         else None)
-        shared = prepared(mult) if mult.dim() == 1 else None
+        if data.seg_id is not None:
+            slots = mult_slots(data, mult)
+        else:
+            rows = mult
 
     def m_step(prev):
-        if prev.dim() == 1:
-            return _m_step_v4(data, prev, *shared)
-        each = per_replicate or [shared] * prev.shape[0]
-        return torch.stack(
-            [_m_step_v4(data, p, *a) for p, a in zip(prev, each)])
+        step = _m_step_v4 if prev.dim() == 1 else _m_step_v4_b
+        return step(data, prev, rows, slots)
 
     return m_step
 
@@ -1209,7 +1277,9 @@ def run_em_v4(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Same loop semantics as `em.run_em` (`em.rs:144-255`). `init` `[T]`,
     or `[B, T]` with `multiplicity` `[B, row_space_r]` (in `read_order`)
-    for B replicates, each frozen at its own stopping point."""
+    for B replicates in one program (`_m_step_v4_b`), each frozen at its
+    own stopping point: the counterpart of the JAX package's
+    `run_em_v4_batch`."""
     return _run(em_loop, data, init, max_iter, convergence_thresh,
                 multiplicity, min_iters)
 
@@ -1222,6 +1292,7 @@ def run_em_v4_squarem(
     multiplicity: Optional[torch.Tensor] = None,
     min_iters: int = 50,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`run_em_v4` with SQUAREM acceleration (`em.squarem_loop`)."""
+    """`run_em_v4` with SQUAREM acceleration (`em.squarem_loop`); with
+    `init` `[B, T]` the counterpart of `run_em_v4_batch_squarem`."""
     return _run(squarem_loop, data, init, max_iter, convergence_thresh,
                 multiplicity, min_iters)

@@ -15,6 +15,13 @@ or as the 4-D view `[n_src, n_chunks, Q/128, 128]` of the quota tensor
 that the expand stage wrote: chunk j's tile is then `x[:, j]` flattened,
 and the exchange between the two stages needs no transpose.
 
+Replicate axis (the `B > 0` arm of the JAX kernel): values of either
+layout may carry a leading axis of B replicates, `[B, n_chunks * R_in, 128]`
+or `[B, n_src, n_chunks, Q/128, 128]`, and the output is then
+`[B, n_chunks * R_out, 128]`; tables, mask and `mul` are shared. Replicate
+b comes out exactly as a call without the axis gives it for `x[b]`, in one
+launch that reads the tables once.
+
 On a CUDA tensor `route_stage` launches the hand-written kernel
 `csrc/route_stage.cu` (built at first use by `kernels/build.py`) or
 raises; `route_stage_reference` is the same function with
@@ -24,14 +31,16 @@ raises; `route_stage_reference` is the same function with
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 LANES = 128
 
-# number of kernel launches made by `route_stage` in this process
+# number of kernel launches made by `route_stage` in this process, and how
+# many of them carried a replicate axis
 launch_count = 0
+replicate_launch_count = 0
 
 KERNEL_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -79,22 +88,30 @@ def ptr(t: Optional[torch.Tensor]):
 
 
 def input_tiles(x: torch.Tensor, n_chunks: int, R_in: int) -> torch.Tensor:
-    """`[n_chunks, R_in, 128]` tiles of either value layout."""
-    if x.dim() == 4:
-        return x.permute(1, 0, 2, 3).reshape(n_chunks, R_in, LANES)
-    return x.reshape(n_chunks, R_in, LANES)
+    """`[n_chunks, R_in, 128]` tiles of either value layout, behind the
+    replicate axis where the values have one."""
+    lead = x.shape[:1] if x.dim() in (3, 5) else ()
+    if x.dim() >= 4:
+        x = x.transpose(-4, -3)
+    return x.reshape(*lead, n_chunks, R_in, LANES)
 
 
 def stage_apply_reference(
     tiles: torch.Tensor, r1: torch.Tensor, src: Optional[torch.Tensor],
     row: torch.Tensor, r2: torch.Tensor, mask: Optional[torch.Tensor],
 ) -> torch.Tensor:
-    """The stage on `[n, R_in, 128]` tiles -> `[n, R_out, 128]`: lane
-    gather by `r1`, row gather per lane by `src * 128 + row`, lane gather by
-    `r2`, zero mask."""
-    n, R_in, _ = tiles.shape
+    """The stage on `[..., n, R_in, 128]` tiles -> `[..., n, R_out, 128]`:
+    lane gather by `r1`, row gather per lane by `src * 128 + row`, lane
+    gather by `r2`, zero mask. The tables `[n, ...]` serve every leading
+    axis."""
+    n, R_in = tiles.shape[-3], tiles.shape[-2]
     R_out = r2.shape[1]
-    s1 = torch.take_along_dim(tiles, r1.long(), dim=2)
+    lead = (1,) * (tiles.dim() - 3)
+
+    def index(t):  # as many axes as the tiles: the gathers broadcast
+        return t.reshape(*lead, *t.shape)
+
+    s1 = torch.take_along_dim(tiles, index(r1.long()), dim=-1)
     ri = row.long()
     if src is not None and R_in > LANES:
         blk = src.long()
@@ -104,11 +121,11 @@ def stage_apply_reference(
         known = None
     # tables are stored [block of ro][c2][ro % 128]
     ri = ri.permute(0, 1, 3, 2).reshape(n, R_out, LANES)
-    q = torch.take_along_dim(s1, ri, dim=1)
+    q = torch.take_along_dim(s1, index(ri), dim=-2)
     if known is not None:
         q = torch.where(known.permute(0, 1, 3, 2).reshape(n, R_out, LANES),
                         q, torch.zeros_like(q))
-    out = torch.take_along_dim(q, r2.long(), dim=2)
+    out = torch.take_along_dim(q, index(r2.long()), dim=-1)
     if mask is not None:
         out = torch.where(mask != 0, out, torch.zeros_like(out))
     return out
@@ -120,37 +137,46 @@ def route_stage_reference(
     n_chunks: int, R_in: int, R_out: int,
     mul: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Plain torch version of the kernel: `[n_chunks * R_out, 128]`."""
+    """Plain torch version of the kernel: `[n_chunks * R_out, 128]`,
+    behind the replicate axis where the values have one."""
     tiles = input_tiles(x, n_chunks, R_in)
     if mul is not None:
         tiles = tiles * mul.reshape(n_chunks, R_in, LANES)
     out = stage_apply_reference(tiles, r1, src, row, r2, mask)
-    return out.reshape(n_chunks * R_out, LANES)
+    return out.reshape(*tiles.shape[:-3], n_chunks * R_out, LANES)
 
 
-def check_values(x: torch.Tensor, n_chunks: int, R_in: int) -> int:
-    """Checks the value operand of a stage kernel; returns 0 for
-    tile-after-tile values and Q for the 4-D quota view."""
+def check_values(x: torch.Tensor, n_chunks: int,
+                 R_in: int) -> Tuple[int, int]:
+    """Checks the value operand of a stage kernel; returns (B, Q): B is 0
+    without a replicate axis and the number of replicates with one, Q is 0
+    for tile-after-tile values and the quota for the quota view."""
     if not x.is_cuda:
         raise ValueError("the kernel needs a CUDA tensor")
     if x.dtype not in KERNEL_SUFFIX:
         raise TypeError(f"no kernel for {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("values must be contiguous")
+    # per replicate: the kernel adds the replicate stride in 64 bits
     if n_chunks * max(R_in, 1) * LANES >= 2**31:
         raise ValueError("a stage of 2^31 elements or more is not supported")
-    if x.dim() == 2:
-        if tuple(x.shape) != (n_chunks * R_in, LANES):
+    B = int(x.shape[0]) if x.dim() in (3, 5) else 0
+    if x.dim() in (3, 5) and B < 1:
+        raise ValueError("a replicate axis needs at least one replicate")
+    shape = tuple(x.shape[1:] if B else x.shape)
+    if len(shape) == 2:
+        if shape != (n_chunks * R_in, LANES):
             raise ValueError(
-                f"values must be [{n_chunks * R_in}, {LANES}], got "
-                f"{tuple(x.shape)}")
-        return 0
-    if (x.dim() != 4 or x.shape[1] != n_chunks or x.shape[3] != LANES
-            or x.shape[0] * x.shape[2] != R_in):
+                f"values must be [{n_chunks * R_in}, {LANES}] (behind a "
+                f"replicate axis or not), got {tuple(x.shape)}")
+        return B, 0
+    if (len(shape) != 4 or shape[1] != n_chunks or shape[3] != LANES
+            or shape[0] * shape[2] != R_in):
         raise ValueError(
             f"values must be [n_src, {n_chunks}, Q/128, {LANES}] with "
-            f"n_src * Q/128 = {R_in}, got {tuple(x.shape)}")
-    return int(x.shape[2]) * LANES
+            f"n_src * Q/128 = {R_in} (behind a replicate axis or not), got "
+            f"{tuple(x.shape)}")
+    return B, int(shape[2]) * LANES
 
 
 def route_stage_cuda(
@@ -159,10 +185,10 @@ def route_stage_cuda(
     n_chunks: int, R_in: int, R_out: int,
     mul: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Launch the CUDA kernel. Raises on anything it does not take and on
-    a refused launch."""
-    global launch_count
-    Q = check_values(x, n_chunks, R_in)
+    """Launch the CUDA kernel, once whatever the number of replicates.
+    Raises on anything it does not take and on a refused launch."""
+    global launch_count, replicate_launch_count
+    B, Q = check_values(x, n_chunks, R_in)
     dev = x.device
     check_stage_tables("", r1, src, row, r2, n_chunks, R_in, R_out, dev)
     if mask is not None:
@@ -171,20 +197,22 @@ def route_stage_cuda(
         if Q:
             raise ValueError("mul goes with tile-after-tile values only")
         check_operand("mul", mul, x.dtype, (n_chunks * R_in, LANES), dev)
-    out = torch.empty((n_chunks * R_out, LANES), dtype=x.dtype, device=dev)
+    out = torch.empty((*x.shape[:1 if B else 0], n_chunks * R_out, LANES),
+                      dtype=x.dtype, device=dev)
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = kernel_function("route_stage", x.dtype,
-                         [p, p, p, p, p, p, p, p, i, i, i, i, p])
+                         [p, p, p, p, p, p, p, p, i, i, i, i, i, p])
     with torch.cuda.device(dev):
         err = fn(
             x.data_ptr(), ptr(mul), r1.data_ptr(),
             ptr(src) if R_in > LANES else None, row.data_ptr(),
             r2.data_ptr(), ptr(mask), out.data_ptr(), n_chunks, R_in, R_out,
-            Q, torch.cuda.current_stream(dev).cuda_stream,
+            Q, max(B, 1), torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"route_stage kernel launch failed: CUDA error {err}")
     launch_count += 1
+    replicate_launch_count += 1 if B else 0
     return out
 
 

@@ -31,10 +31,14 @@ chunk ((input row, quota row) and (quota row, output row)), always
 128-colorable (Konig); irregular degrees are regularized with dummy
 edges before coloring.
 
+A batch of replicates goes through the same tables in one launch a
+stage: `GlobalRoutePlan.expand_y1_batch` / `reduce_strided_batch` take a
+leading replicate axis (the replicate arm of `route_stage.py`), and
+`BatchTilePermute` takes `[B, n]` as B times its tiles.
+
 Not ported: `GlobalPermute`, `balanced_pad_routing` and `spread_roundrobin`
-(used by the v3 iteration only), the in-kernel replicate axis
-(`expand_y1_batch`, `reduce_strided_batch`), and `_chunks_per_program`,
-which sizes grid programs for another memory hierarchy.
+(used by the v3 iteration only), and `_chunks_per_program`, which sizes
+grid programs for another memory hierarchy.
 """
 
 from __future__ import annotations
@@ -148,11 +152,18 @@ class BatchTilePermute:
         return self.r1.device
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        x2 = x.reshape(self.n_tiles * self.rows, LANES)
+        """`x` holds the n elements of the tiles, in any shape, and comes
+        back flat; `[B, n]` is B replicates through the same tables in one
+        launch and comes back as `[B, n]`."""
+        n = self.n_tiles * self.rows * LANES
+        batched = x.dim() == 2 and x.shape[1] == n
+        reps = x.shape[0] if batched else 1
         out = tile_permute(
-            x2, self.r1, self.r2, self.src, self.lane, self.rows, self.n_tiles
+            x.reshape(reps * self.n_tiles * self.rows, LANES), self.r1,
+            self.r2, self.src, self.lane, self.rows, self.n_tiles,
+            replicates=reps,
         )
-        return out.reshape(-1)
+        return out.reshape(reps, n) if batched else out.reshape(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -267,12 +278,13 @@ class GlobalRoutePlan:
         return tuple(getattr(self, name) for name in ROUTE_TABLES)
 
     def _pad(self, v: torch.Tensor) -> torch.Tensor:
+        """Cut or zero-fill the last axis to the source space."""
         npad = self.n_src * self.chunk_rows * LANES
-        if v.shape[0] == npad:
+        if v.shape[-1] == npad:
             return v
-        if v.shape[0] > npad:
-            return v[:npad]
-        return torch.nn.functional.pad(v, (0, npad - v.shape[0]))
+        if v.shape[-1] > npad:
+            return v[..., :npad]
+        return torch.nn.functional.pad(v, (0, npad - v.shape[-1]))
 
     def expand_y1(self, x: torch.Tensor,
                   mul: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -311,10 +323,40 @@ class GlobalRoutePlan:
         return out[: self.n_out] if sliced else out
 
     def quota_view(self, y1: torch.Tensor) -> torch.Tensor:
-        """The PRE-exchange quota tensor as [n_src, n_dst, Q/128, 128]."""
+        """The PRE-exchange quota tensor `[n_src * R1, 128]` as
+        `[n_src, n_dst, Q/128, 128]`, behind a replicate axis where it has
+        one."""
         if self.Q % LANES:
             raise ValueError("strided exchange needs Q % 128 == 0")
-        return y1.reshape(self.n_src, self.n_dst, self.Q // LANES, LANES)
+        return y1.reshape(*y1.shape[:-2], self.n_src, self.n_dst,
+                          self.Q // LANES, LANES)
+
+    def expand_y1_batch(self, x_b: torch.Tensor,
+                        mul: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`expand_y1` for B replicates in one launch: `x_b` `[B, n]` ->
+        `[B, n_src * R1, 128]`. The stage tables are read once for all
+        replicates; `mul` is shared by them."""
+        n_src, CR = self.n_src, self.chunk_rows
+        x_pad = self._pad(x_b).reshape(x_b.shape[0], n_src * CR, LANES)
+        mul_pad = None if mul is None else self._pad(mul).reshape(
+            n_src * CR, LANES
+        )
+        return route_stage(
+            x_pad, self.s1_r1, self.s1_src, self.s1_row, self.s1_r2,
+            None, n_src, CR, self.R1, mul=mul_pad,
+        )
+
+    def reduce_strided_batch(self, y1_b: torch.Tensor,
+                             sliced: bool = True) -> torch.Tensor:
+        """`reduce_strided` for B replicates in one launch: `y1_b`
+        `[B, n_src * R1, 128]` -> `[B, n_pad_out]` (the tail past `n_out`
+        is zero)."""
+        y3 = route_stage(
+            self.quota_view(y1_b), self.s3_r1, self.s3_src, self.s3_row,
+            self.s3_r2, self.s3_mask, self.n_dst, self.R3, self.chunk_rows,
+        )
+        out = y3.reshape(y1_b.shape[0], -1)
+        return out[:, : self.n_out] if sliced else out
 
     def reduce_strided(self, y1: torch.Tensor,
                        sliced: bool = True) -> torch.Tensor:

@@ -3,15 +3,18 @@
 Counterpart of the JAX package's `quant/bulk.py` (`quantify_bulk_alignments_from_bam`,
 `bulk.rs:212-259`, and the shared inference/output tail
 `perform_inference_and_write_output`, `bulk.rs:83-210`). The host packs and
-evaluates the coverage model; the EM loop and the bootstrap batches run on
-the torch device the caller names (`args.device`, default `cuda`). There
+evaluates the coverage model (on the device instead with
+`OARFISH_COVMODEL=torch`, `models/coverage_torch.py`); the EM loop and the
+bootstrap batches run on the torch device the caller names (`args.device`,
+default `cuda`). There
 is no em/em_par split: the device EM is deterministic and uses the serial
 path's convergence guard (`niter > 50`), which is the parity target.
 
 Four EM formulations are ported: `segsum` (`ops/em.py`), `fast` and
 `pallas` (`ops/em_fast.py`, the latter with the hand-written sorted-gather
 kernel), and `v4` (`ops/em_v4.py`, the routed iteration with its three
-hand-written kernels). A run never changes formulation or device behind
+hand-written kernels, a batch of bootstrap replicates being one program
+there). A run never changes formulation or device behind
 the caller's back: what is not ported raises `NotImplementedError`, a
 missing device or a kernel that does not build or launch raises, and so
 does a `v4` whose route geometry is not feasible.
@@ -20,6 +23,7 @@ does a `v4` whose route geometry is not feasible.
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import Optional
 
@@ -31,6 +35,10 @@ from ..device import resolve_device, resolve_em_dtype
 from ..host.store import AlignmentStore, TranscriptCoverage
 from ..io.bam import verify_header
 from ..models.coverage import logistic_prob, normalize_read_probs
+from ..models.coverage_torch import (
+    logistic_prob_torch,
+    normalize_read_probs_torch,
+)
 from ..models.kde import get_kde_model
 from ..ops import bootstrap as bootstrap_ops
 from ..ops.em import (
@@ -156,10 +164,17 @@ def perform_inference_and_write_output(
 
     if opts.model_coverage:
         t_cov = time.time()
-        cov_flat = logistic_prob(coverage, args.growth_rate,
+        if os.environ.get("OARFISH_COVMODEL") == "torch":
+            # the segment-op formulation on the run's device
+            cov_flat = logistic_prob_torch(coverage, args.growth_rate,
+                                           device=device)
+            normalize_read_probs_torch(store, coverage, cov_flat,
+                                       args.bin_width, device=device)
+        else:
+            cov_flat = logistic_prob(coverage, args.growth_rate,
+                                     threads=args.threads)
+            normalize_read_probs(store, coverage, cov_flat, args.bin_width,
                                  threads=args.threads)
-        normalize_read_probs(store, coverage, cov_flat, args.bin_width,
-                             threads=args.threads)
         log.info("phase bulk.covmodel %.3f", time.time() - t_cov)
 
     log.info("Total number of alignment records : %d", store.num_alignments)

@@ -15,9 +15,18 @@ Tolerances, all f32:
   uniform CSR. The kernels are bit-equal (`test_torch_static_permute.py`);
   the row sums around them add in torch's order. For the skewed CSR, whose
   hot transcripts sum ~1e5 terms in two levels, rtol 1e-5 (atol 1e-5).
+* the m-step of a batch of replicates (`_m_step_v4_batch`, one call of each
+  kernel's plain version for all replicates): against the JAX package's
+  `_m_step_v4_batch` (its in-kernel replicate arm, switched on for the
+  test) at rtol 1e-6; against the port's own `_m_step_v4` per replicate,
+  equal bit for bit on the CPU (torch sums a bucket's rows in the same
+  order with and without the leading axis).
 * the whole EM: the same number of iterations, counts at rtol 1e-5 /
   atol 1e-3 (the JAX package's own bar for batched vs serial runs);
   against the NumPy f64 oracle L1/R < 2e-3 and total mass within 1e-4.
+  The same bar for the batched SQUAREM run against the JAX package's
+  `run_em_v4_batch_squarem`. On the card (`cuda`) a batched replicate
+  against its serial run: the same iterations, L1/R < 1e-5.
 * `.quant` of `--em-impl v4` (f32) against `--em-impl segsum` (f64)
   through the port's CLI: L1 per read < 2e-3, mass within 1e-4.
 """
@@ -204,6 +213,166 @@ def test_both_exchanges_give_the_same_bits(cases):
         assert torch.equal(a, b)
 
 
+BATCH = 6
+
+
+def batch_inputs(c, with_mult, seed=21):
+    rng = np.random.default_rng(seed)
+    prev = np.abs(rng.normal(10.0, 3.0, size=(BATCH, T))).astype(np.float32)
+    mult = None
+    if with_mult:
+        mult = rng.multinomial(R, np.full(R, 1.0 / R), size=BATCH)[
+            :, c["jorder"]].astype(np.float32)
+    return prev, mult
+
+
+def ext_space_batch(data, prev_b):
+    return torch.nn.functional.pad(torch.from_numpy(prev_b),
+                                   (0, data.t_space - T))
+
+
+@pytest.mark.parametrize("name", ["uniform", "skewed"])
+@pytest.mark.parametrize("with_mult", [False, True])
+def test_m_step_batch_matches_jax(cases, name, with_mult, monkeypatch):
+    """Six replicates through one batched m-step of each package; the JAX
+    package's in-kernel replicate arm is behind its switch."""
+    c = cases[name]
+    monkeypatch.setenv("OARFISH_V4_BATCH_KERNELS", "1")
+    monkeypatch.delenv("OARFISH_V4_NO_MIDDLE", raising=False)
+    monkeypatch.delenv("OARFISH_V4_NO_STRIDED", raising=False)
+    assert jv4._batch_eligible(c["jd"])
+    data = c["carried"]
+    assert tv4._batch_eligible(data)
+    prev, mult = batch_inputs(c, with_mult)
+    want = np.asarray(jv4._m_step_v4_batch(
+        c["jd"], jnp.asarray(prev),
+        None if mult is None else jnp.asarray(mult)))
+    tmult = None if mult is None else torch.from_numpy(mult)
+    got = tv4._m_step_v4_batch(data, ext_space_batch(data, prev), tmult)
+    assert got.shape == (BATCH, data.t_space) and not got[:, T:].any()
+    tol = M_STEP_TOL[name]
+    np.testing.assert_allclose(got[:, :T].numpy(), want, rtol=tol, atol=tol)
+    # the multiplicities already in the slot layout: the same bits
+    if tmult is not None:
+        again = tv4._m_step_v4_batch(
+            data, ext_space_batch(data, prev),
+            mult_sl_b=tv4.mult_slots(data, tmult))
+        assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("name", ["uniform", "skewed"])
+@pytest.mark.parametrize("with_mult", [False, True])
+def test_m_step_batch_equals_per_replicate_steps(cases, name, with_mult):
+    """Replicate b of the batched m-step is `_m_step_v4` on replicate b,
+    bit for bit, through `make_m_step` as the EM loop calls it."""
+    c = cases[name]
+    data = c["td"]
+    prev, mult = batch_inputs(c, with_mult, seed=22)
+    tmult = None if mult is None else torch.from_numpy(mult)
+    ext = ext_space_batch(data, prev)
+    got = tv4.make_m_step(data, tmult)(ext)
+    assert got.shape == (BATCH, data.t_space)
+    for b in range(BATCH):
+        want = tv4._m_step_v4(data, ext[b],
+                              None if tmult is None else tmult[b])
+        assert torch.equal(got[b], want), b
+
+
+def count_calls(monkeypatch):
+    """Calls of the three wrappers, as `em_v4` and `static_permute` reach
+    them."""
+    from oarfish_tpu_torch.ops import static_permute as tsp
+
+    calls = {"tile_permute": 0, "route_stage": 0, "route_middle": 0}
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    monkeypatch.setattr(tsp, "tile_permute",
+                        counted("tile_permute", tsp.tile_permute))
+    monkeypatch.setattr(tsp, "route_stage",
+                        counted("route_stage", tsp.route_stage))
+    monkeypatch.setattr(tv4, "route_middle",
+                        counted("route_middle", tv4.route_middle))
+    return calls
+
+
+def test_batched_m_step_is_one_call_per_kernel(cases, monkeypatch):
+    """One call of each wrapper for all replicates: two tile permutes, two
+    route stages, one fused middle, as for a single m-step."""
+    c = cases["uniform"]
+    data = c["td"]
+    prev, mult = batch_inputs(c, True)
+    step = tv4.make_m_step(data, torch.from_numpy(mult))
+    calls = count_calls(monkeypatch)
+    step(ext_space_batch(data, prev))
+    assert calls == {"tile_permute": 2, "route_stage": 2, "route_middle": 1}
+
+
+@pytest.mark.parametrize("layout", ["unfused", "transposed"])
+def test_ineligible_layout_takes_the_loop(cases, layout, monkeypatch, caplog):
+    """Without the level table (unfused middle) or with a quota that is no
+    whole number of lane tiles (transposed exchange) the replicates of a
+    batch run one after another and give the numbers of single runs; the
+    first such m-step says so in the log."""
+    import dataclasses
+
+    c = cases["uniform"]
+    data = c["td"]
+    if layout == "unfused":
+        other = dataclasses.replace(data, seg_id=None)
+        per_step = {"tile_permute": 2, "route_stage": 4, "route_middle": 0}
+    else:
+        # the same tables, read through the transposed exchange
+        monkeypatch.setattr(tv4, "_batch_eligible", lambda d: False)
+        monkeypatch.setattr(
+            tv4, "_middle_fused",
+            lambda d, p, m, _f=tv4._middle_fused: _f(d, p, m, strided=False))
+        other = data
+        per_step = {"tile_permute": 2, "route_stage": 2, "route_middle": 1}
+    assert not tv4._batch_eligible(other)
+    prev, mult = batch_inputs(c, True, seed=23)
+    tmult = torch.from_numpy(mult)
+    ext = ext_space_batch(data, prev)
+    monkeypatch.setattr(tv4, "_loop_logged", False)
+    calls = count_calls(monkeypatch)
+    with caplog.at_level(logging.INFO, logger="oarfish_tpu_torch"):
+        step = tv4.make_m_step(other, tmult)
+        got = step(ext)
+        step(ext)
+    assert calls == {k: 2 * BATCH * n for k, n in per_step.items()}
+    assert caplog.text.count("replicates of a batch run one after another") == 1
+    for b in range(BATCH):
+        want = tv4._m_step_v4(other, ext[b], tmult[b])
+        assert torch.equal(got[b], want)
+    # and the loop gives what the one program gives, to the glue's rounding
+    batched = tv4._m_step_v4_batch(data, ext, tmult)
+    np.testing.assert_allclose(got.numpy(), batched.numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_batched_em_matches_jax_batch_runner(cases, monkeypatch):
+    """`run_em_v4` on `[B, T]` against the JAX package's `run_em_v4_batch`
+    with its in-kernel arm: the same iterations per replicate."""
+    c = cases["uniform"]
+    monkeypatch.setenv("OARFISH_V4_BATCH_KERNELS", "1")
+    rng = np.random.default_rng(16)
+    mult = tboot.sample_multiplicities(rng, 3, R)[:, c["torder"]].astype(
+        np.float32)
+    jax_counts, jax_niter = jv4.run_em_v4_batch(
+        c["jd"], jnp.full(T, R / T, dtype=jnp.float32), 56, 5e-3,
+        jnp.asarray(mult))
+    init = torch.full((3, T), R / T, dtype=torch.float32)
+    counts, niter = tv4.run_em_v4(c["td"], init, 56, 5e-3,
+                                  multiplicity=torch.from_numpy(mult))
+    assert niter.tolist() == np.asarray(jax_niter).tolist()
+    np.testing.assert_allclose(counts.numpy(), np.asarray(jax_counts),
+                               rtol=1e-5, atol=1e-3)
+
+
 @pytest.fixture(scope="module")
 def em_runs(cases):
     c = cases["uniform"]
@@ -269,6 +438,87 @@ def test_bootstraps_equal_serial_runs(cases):
         assert int(niter) == int(niters[b])
         np.testing.assert_array_equal(got[b], want.double().numpy())
         assert abs(got[b].sum() - R) / R < 1e-4
+
+
+@pytest.mark.cuda
+def test_batched_replicates_on_the_card_match_serial_runs(cases):
+    """On the card the kernels give every replicate of a batch the bits of
+    a single launch, but torch's CUDA `sum` splits a reduction by its
+    number of outputs, so the batched glue adds a bucket's rows in another
+    order than a single m-step and a replicate's last bits depend on its
+    batch. Held here: the same iterations as the serial run, and counts
+    within L1 / R < 1e-5 of it (f32, up to 200 iterations), whatever the
+    batch (3 at once, or 2 and 1)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    c = cases["uniform"]
+    txp_id, w, boundaries = c["csr"]
+    data, order = tv4.EmV4Data.build(txp_id, w, boundaries, T, device="cuda")
+    np.testing.assert_array_equal(order, c["torder"])
+    init = torch.full((T,), R / T, dtype=torch.float32, device="cuda")
+    rng = np.random.default_rng(19)
+    mult = tboot.sample_multiplicities(rng, 3, R)[:, order]
+
+    def run(i, m):
+        return tv4.run_em_v4(data, i, 200, 1e-3, multiplicity=m)
+
+    serial = [run(init, torch.from_numpy(mult[b]).float().cuda())
+              for b in range(3)]
+    for batch in (3, 2):
+        got, niters = tboot.run_replicates(run, mult, init, batch=batch)
+        for b, (want, niter) in enumerate(serial):
+            assert int(niters[b]) == int(niter) > 50, (batch, b)
+            l1 = np.abs(got[b] - want.double().cpu().numpy()).sum() / R
+            assert l1 < 1e-5, (batch, b, l1)
+            assert abs(got[b].sum() - R) / R < 1e-4
+
+
+def test_squarem_batch_equals_serial_runs(cases):
+    """`run_em_v4_squarem` on `[B, T]` (the counterpart of
+    `run_em_v4_batch_squarem`) against one accelerated run per replicate:
+    the same iterations; values at rtol 1e-5 (the step length is a ratio of
+    two dot products over T, which a batch sums in another order, and it
+    reaches 64)."""
+    c = cases["uniform"]
+    data = c["td"]
+    rng = np.random.default_rng(17)
+    mult = torch.from_numpy(tboot.sample_multiplicities(rng, 2, R)[
+        :, c["torder"]].astype(np.float32))
+    init = torch.full((2, T), R / T, dtype=torch.float32)
+    got, niters = tv4.run_em_v4_squarem(data, init, 30, 5e-3,
+                                        multiplicity=mult)
+    assert got.shape == (2, T)
+    for b in range(2):
+        want, niter = tv4.run_em_v4_squarem(data, init[b], 30, 5e-3,
+                                            multiplicity=mult[b])
+        assert int(niter) == int(niters[b]) == 30
+        np.testing.assert_allclose(got[b].numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-3)
+        assert abs(float(got[b].double().sum()) - R) / R < 1e-4
+
+
+def test_squarem_batch_matches_jax_batch_runner(cases, monkeypatch):
+    """`run_em_v4_squarem` on `[B, T]` against the JAX package's
+    `run_em_v4_batch_squarem` with its in-kernel arm, on the carried
+    tables: the same iterations per replicate, counts at the whole EM's
+    rtol 1e-5 / atol 1e-3."""
+    c = cases["uniform"]
+    monkeypatch.setenv("OARFISH_V4_BATCH_KERNELS", "1")
+    rng = np.random.default_rng(18)
+    mult = tboot.sample_multiplicities(rng, 3, R)[:, c["jorder"]].astype(
+        np.float32)
+    jax_counts, jax_niter = jv4.run_em_v4_batch_squarem(
+        c["jd"], jnp.full(T, R / T, dtype=jnp.float32), 30, 5e-3,
+        jnp.asarray(mult))
+    init = torch.full((3, T), R / T, dtype=torch.float32)
+    counts, niter = tv4.run_em_v4_squarem(
+        c["carried"], init, 30, 5e-3, multiplicity=torch.from_numpy(mult))
+    assert niter.tolist() == np.asarray(jax_niter).tolist()
+    got = counts.numpy()
+    assert got.shape == (3, T)
+    np.testing.assert_allclose(got, np.asarray(jax_counts)[:, :T],
+                               rtol=1e-5, atol=1e-3)
+    assert (np.abs(got.astype(np.float64).sum(axis=1) - R) / R < 1e-4).all()
 
 
 def test_plan_cache_round_trip(cases, tmp_path, monkeypatch, caplog):

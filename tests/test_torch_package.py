@@ -60,6 +60,8 @@ def test_sources_exist():
                  "oarfish_tpu_torch/ops/balance.py",
                  "oarfish_tpu_torch/ops/em_v4.py",
                  "oarfish_tpu_torch/ops/plan_cache.py",
+                 "oarfish_tpu_torch/ops/bootstrap.py",
+                 "oarfish_tpu_torch/models/coverage_torch.py",
                  "oarfish_tpu_torch/device.py", "chip_smoke.py"):
         assert need in names
     from oarfish_tpu_torch.kernels import build
@@ -74,6 +76,31 @@ def test_source_does_not_name_jax(path):
     text = (REPO / path).read_text()
     hits = [ln for ln in text.splitlines() if FORBIDDEN.search(ln)]
     assert not hits, hits[:3]
+
+
+def test_no_source_names_a_finished_queue_item():
+    """The batched v4 bootstraps (queue A item 2), the device coverage
+    model (item 3) and the replicate axis of the route kernels (queue B
+    item 1) are ported: nothing in the port still points at them as work to
+    do, and nothing raises `NotImplementedError` for them."""
+    stale = re.compile(r"queue A item [123]\b|queue B")
+    for path in port_sources():
+        hits = [ln for ln in path.read_text().splitlines()
+                if stale.search(ln)]
+        assert not hits, (path.name, hits[:3])
+
+
+def test_kernel_wrappers_take_the_replicate_axis():
+    """The wrappers of the route stage and the fused middle document and
+    count the replicate-axis arm; their CUDA sources have it."""
+    from oarfish_tpu_torch.ops import route_middle, route_stage
+
+    for module in (route_stage, route_middle):
+        assert isinstance(module.launch_count, int)
+        assert isinstance(module.replicate_launch_count, int)
+    for source in ("route_stage.cu", "route_middle.cu"):
+        text = (PKG / "csrc" / source).read_text()
+        assert "int B" in text and "Replicate axis" in text, source
 
 
 def test_import_needs_no_jax_triton_or_compiler(tmp_path):

@@ -8,6 +8,11 @@ package and carried across by `ops/convert.py`) go through
 which are what the port runs for CPU tensors and what the CUDA kernels are
 held against on the card.
 
+The replicate axis (`B > 0` in the JAX kernels, a leading axis here) goes
+through `_run_route_stage(..., B=B)` / `_run_middle_stage(..., B=B)` and the
+port's plain versions with B in {1, 3}, and each replicate must also equal
+what a call without the axis gives.
+
 Tolerance: none. K2 and K3 move f32 values (K3 with one product per
 element when `mul` is given); K4 adds the rows of a group in the order of
 the JAX kernel's butterfly and divides once. All outputs must be equal bit
@@ -109,6 +114,24 @@ def test_tile_permute_f64_passes_through():
     np.testing.assert_array_equal(got.numpy(), x[perm])
 
 
+@pytest.mark.parametrize("B", [1, 3])
+def test_tile_permute_replicates_share_the_tables(B):
+    """`[B, n]` is B times the tiles through the same tables, in one call;
+    the JAX package gets the same by calling its kernel per replicate."""
+    rng = np.random.default_rng(8)
+    rows, n_tiles = 256, 2
+    perms = [rng.permutation(rows * LANES) for _ in range(n_tiles)]
+    jb = jsp.BatchTilePermute.build(
+        [jsp.DeviceTilePlan.build(p, rows) for p in perms])
+    plan = tile_permute_from_numpy(tile_fields(jb), "cpu")
+    x = rng.normal(size=(B, n_tiles * rows * LANES)).astype(np.float32)
+    got = plan(torch.from_numpy(x))
+    assert got.shape == x.shape
+    for b in range(B):
+        assert bits(got[b].numpy()) == bits(jb(jnp.asarray(x[b])))
+        assert torch.equal(got[b], plan(torch.from_numpy(x[b])))
+
+
 # ---------------------------------------------------------------------------
 # K3: one route stage
 # ---------------------------------------------------------------------------
@@ -164,6 +187,63 @@ def test_reduce_stage_bit_equal_to_pallas(routes, cr, strided):
     # masked outputs are exactly zero
     mask = tpn.s3_mask.numpy().reshape(-1) != 0
     assert not got.numpy()[~mask].any()
+
+
+REPLICATES = [1, 3]
+
+
+@pytest.mark.parametrize("B", REPLICATES)
+@pytest.mark.parametrize("cr", [r[2] for r in ROUTES])
+@pytest.mark.parametrize("with_mul", [False, True])
+def test_expand_stage_replicates_bit_equal_to_pallas(routes, cr, with_mul, B):
+    """`expand_y1_batch`: values with a leading replicate axis, `mul`
+    shared; H_in = 1 (128 rows) and > 1."""
+    rng, n, _, _, jp, tpn = routes[cr]
+    x = rng.normal(size=(B, n)).astype(np.float32)
+    mul = rng.normal(size=n).astype(np.float32) if with_mul else None
+    want = np.asarray(jp.expand_y1_batch(
+        jnp.asarray(x), None if mul is None else jnp.asarray(mul)))
+    tmul = None if mul is None else torch.from_numpy(mul)
+    got = tpn.expand_y1_batch(torch.from_numpy(x), tmul)
+    assert got.shape == (B, tpn.n_src * tpn.R1, LANES)
+    assert bits(got.numpy()) == bits(want)
+    for b in range(B):
+        assert torch.equal(got[b], tpn.expand_y1(torch.from_numpy(x[b]), tmul))
+
+
+@pytest.mark.parametrize("B", REPLICATES)
+@pytest.mark.parametrize("cr", [r[2] for r in ROUTES])
+@pytest.mark.parametrize("strided", [False, True])
+def test_reduce_stage_replicates_bit_equal_to_pallas(routes, cr, strided, B):
+    """The masked reduce stage with a replicate axis: on the quota view
+    (`reduce_strided_batch`) and on tile-after-tile values."""
+    rng, _, _, _, jp, tpn = routes[cr]
+    y1 = rng.normal(size=(B, tpn.n_src * tpn.R1, LANES)).astype(np.float32)
+    if strided:
+        want = np.asarray(jp.reduce_strided_batch(jnp.asarray(y1),
+                                                  sliced=False))
+        got = tpn.reduce_strided_batch(torch.from_numpy(y1), sliced=False)
+        single = [tpn.reduce_strided(torch.from_numpy(y1[b]), sliced=False)
+                  for b in range(B)]
+    else:
+        zg = y1.reshape(B, tpn.n_src, tpn.n_dst, tpn.Q).transpose(0, 2, 1, 3)
+        zg = np.ascontiguousarray(zg).reshape(B, tpn.n_dst * tpn.R3, LANES)
+        want = np.asarray(jsp._run_route_stage(
+            jnp.asarray(zg), jp.s3_r1, jp.s3_src, jp.s3_row, jp.s3_r2,
+            jp.s3_mask, jp.n_dst, jp.R3, jp.chunk_rows, True, B=B,
+        )).reshape(B, -1)
+        got = rs.route_stage(
+            torch.from_numpy(zg), tpn.s3_r1, tpn.s3_src, tpn.s3_row,
+            tpn.s3_r2, tpn.s3_mask, tpn.n_dst, tpn.R3, tpn.chunk_rows,
+        ).reshape(B, -1)
+        single = [tpn.reduce(torch.from_numpy(zg[b]), sliced=False)
+                  for b in range(B)]
+    assert got.shape == (B, tpn.n_dst * tpn.chunk_rows * LANES)
+    assert bits(got.numpy()) == bits(want)
+    mask = tpn.s3_mask.numpy().reshape(-1) != 0
+    for b in range(B):
+        assert torch.equal(got[b], single[b])
+        assert not got[b].numpy()[~mask].any()
 
 
 @pytest.mark.parametrize("cr", [r[2] for r in ROUTES])
@@ -314,6 +394,51 @@ def test_middle_bit_equal_to_pallas(middles, cr, strided, with_mult):
     assert got.shape == (n_q, LANES) and got.dtype == torch.float32
     assert np.isfinite(got.numpy()).all()
     assert bits(got.numpy()) == bits(want)
+
+
+@pytest.mark.parametrize("B", REPLICATES)
+@pytest.mark.parametrize("cr", [m[2] for m in MIDDLES])
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("with_mult", [False, True])
+def test_middle_replicates_bit_equal_to_pallas(middles, cr, strided,
+                                               with_mult, B):
+    """Values, `mult` and output with a leading replicate axis; tables and
+    `lvl` shared. Values as in `test_middle_bit_equal_to_pallas`: both
+    signs, exact zeros, and tiny ones that meet the denominator threshold
+    from both sides."""
+    rng, ja, jb, ta, tb, lvl, max_lvl = middles[cr]
+    n_q, n_c = ta.n_dst * ta.R3, ta.n_dst * cr
+    y = rng.normal(size=(B, n_q, LANES)).astype(np.float32)
+    y[rng.random(y.shape) < 0.05] = 0.0
+    # tiny values of either sign, none so small that a scaled one would be
+    # subnormal: XLA's CPU backend flushes subnormals to zero, torch does not
+    tiny = rng.random(y.shape) < 0.02
+    y[tiny] = np.copysign(
+        1e-32 * rng.uniform(0.5, 2.0, size=int(tiny.sum())), y[tiny])
+    mult = (rng.integers(0, 4, size=(B, n_c, LANES)).astype(np.float32)
+            if with_mult else None)
+    qr = ta.Q // LANES if strided else 0
+    yj = jnp.asarray(y)
+    kw = dict(n_chunks=ja.n_dst, R_q=ja.R3, R_c=cr,
+              thresh=float(EM_DENOM_THRESH), max_lvl=max_lvl)
+    want = np.asarray(jsp._run_middle_stage(
+        yj.reshape(B, ta.n_src, ta.n_dst, qr, LANES) if strided else yj,
+        jnp.asarray(lvl), *middle_args(ja, jb, lambda t: t),
+        mult=None if mult is None else jnp.asarray(mult), strided_qr=qr, B=B,
+        **kw))
+    yt = torch.from_numpy(y)
+    tmult = None if mult is None else torch.from_numpy(mult)
+    args = middle_args(ta, tb, lambda t: t)
+    tl = torch.from_numpy(lvl)
+    got = rm.route_middle(ta.quota_view(yt) if strided else yt, tl, *args,
+                          mult=tmult, **kw)
+    assert got.shape == (B, n_q, LANES) and got.dtype == torch.float32
+    assert bits(got.numpy()) == bits(want)
+    for b in range(B):
+        one = rm.route_middle(
+            ta.quota_view(yt[b]) if strided else yt[b], tl, *args,
+            mult=None if tmult is None else tmult[b], **kw)
+        assert torch.equal(got[b], one)
 
 
 def test_middle_denominators_are_group_sums(middles):
@@ -487,6 +612,112 @@ def test_middle_kernel_bit_equal_to_plain_on_card(cr, dtype):
                 got, rm.route_middle_reference(values, lvl, *args, mult=m,
                                                **kw))
     assert rm.launch_count == before + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tile_permute_replicates_on_card(dtype):
+    _skip_without_card()
+    rng = np.random.default_rng(43)
+    perms = [rng.permutation(256 * LANES) for _ in range(2)]
+    plan = tsp.BatchTilePermute.build(
+        [tsp.DeviceTilePlan.build(p, 256) for p in perms], device="cuda")
+    x = torch.from_numpy(rng.normal(size=(5, 2 * 256 * LANES))).to(dtype).cuda()
+    before = tp.launch_count
+    got = plan(x)
+    torch.cuda.synchronize()
+    assert tp.launch_count == before + 1
+    want = tp.tile_permute_reference(
+        x.reshape(-1, LANES), plan.r1, plan.r2, plan.src, plan.lane, 256, 2,
+        replicates=5)
+    assert torch.equal(got.reshape(-1, LANES), want)
+    for b in range(5):
+        assert torch.equal(got[b], plan(x[b]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("cr", [128, 256])
+def test_route_stage_replicate_arm_on_card(cr, B):
+    """One launch for B replicates, bit-equal to the plain version and to
+    B launches without the axis: expand with and without `mul`, strided
+    and tile-after-tile reduce with the mask."""
+    _skip_without_card()
+    rng, n, out_idx, in_idx = random_route(44, 16, cr)
+    plan = tsp.GlobalRoute(out_idx, in_idx, n, chunk_rows=cr,
+                           device="cuda").plan
+    x = torch.from_numpy(rng.normal(size=(B, n)).astype(np.float32)).cuda()
+    mul = torch.from_numpy(rng.normal(size=n).astype(np.float32)).cuda()
+    before = rs.launch_count
+    y1 = plan.expand_y1_batch(x, mul)
+    y1_plain = plan.expand_y1_batch(x)
+    out = plan.reduce_strided_batch(y1, sliced=False)
+    zg = y1.reshape(B, plan.n_src, plan.n_dst, plan.Q).transpose(1, 2)
+    zg = zg.contiguous().reshape(B, plan.n_dst * plan.R3, LANES)
+    s3 = (plan.s3_r1, plan.s3_src, plan.s3_row, plan.s3_r2, plan.s3_mask,
+          plan.n_dst, plan.R3, cr)
+    out_t = rs.route_stage(zg, *s3)
+    torch.cuda.synchronize()
+    assert rs.launch_count == before + 4
+    s1 = (plan.s1_r1, plan.s1_src, plan.s1_row, plan.s1_r2, None,
+          plan.n_src, cr, plan.R1)
+    xb = x.reshape(B, -1, LANES)
+    assert torch.equal(y1, rs.route_stage_reference(
+        xb, *s1, mul=mul.reshape(-1, LANES)))
+    assert torch.equal(y1_plain, rs.route_stage_reference(xb, *s1))
+    assert torch.equal(out, rs.route_stage_reference(
+        plan.quota_view(y1), *s3).reshape(B, -1))
+    assert torch.equal(out_t.reshape(B, -1), out)
+    for b in range(B):
+        assert torch.equal(y1[b], plan.expand_y1(x[b], mul))
+        assert torch.equal(out[b], plan.reduce_strided(y1[b], sliced=False))
+    want = np.zeros((B, n), np.float32)
+    want[:, out_idx] = (x * mul).cpu().numpy()[:, in_idx]
+    np.testing.assert_array_equal(out.cpu().numpy(), want)
+    with pytest.raises(ValueError, match="values must be"):
+        rs.route_stage(xb[:, :-1], *s1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cr,dtype", [(128, torch.float32),
+                                      (256, torch.float32),
+                                      (512, torch.float32),
+                                      (256, torch.float64)])
+def test_middle_replicate_arm_on_card(cr, dtype):
+    """One launch for B = 3 replicates, the chunk in shared memory (128 and
+    256 rows in f32) and in the scratch area in device memory (512 rows,
+    and 256 in f64): bit-equal to the plain version and to 3 launches
+    without the axis, with and without `mult`, on both value layouts."""
+    _skip_without_card()
+    B = 3
+    rng, n, out_idx, in_idx = random_route(45, 8, cr)
+    fa, fb = tsp.build_route_pair(out_idx, in_idx, n, chunk_rows=cr,
+                                  device="cuda")
+    max_lvl = 6
+    lvl = torch.from_numpy(level_table(rng, fa.n_dst, cr, max_lvl)).cuda()
+    y = torch.from_numpy(
+        rng.normal(size=(B, fa.n_dst * fa.R3, LANES))).to(dtype).cuda()
+    mult = torch.from_numpy(rng.integers(
+        0, 4, size=(B, fa.n_dst * cr, LANES)).astype(np.float64)
+    ).to(dtype).cuda()
+    args = middle_args(fa, fb, lambda t: t)
+    kw = dict(n_chunks=fa.n_dst, R_q=fa.R3, R_c=cr,
+              thresh=float(EM_DENOM_THRESH), max_lvl=max_lvl)
+    before = rm.launch_count
+    for m in (None, mult):
+        for values in (y, fa.quota_view(y)):
+            got = rm.route_middle(values, lvl, *args, mult=m, **kw)
+            torch.cuda.synchronize()
+            assert got.shape == (B, fa.n_dst * fa.R3, LANES)
+            assert torch.equal(got, rm.route_middle_reference(
+                values, lvl, *args, mult=m, **kw))
+    assert rm.launch_count == before + 4
+    for b in range(B):
+        one = rm.route_middle(fa.quota_view(y[b]), lvl, *args,
+                              mult=mult[b], **kw)
+        assert torch.equal(got[b], one)
+    with pytest.raises(ValueError, match="mult"):
+        rm.route_middle(y, lvl, *args, mult=mult[0], **kw)
 
 
 def test_native_library_loads_once_under_threads(monkeypatch):
