@@ -18,14 +18,20 @@ points a user calls. One JSON object per phase goes to standard output:
                  alignments): bit-equal for f32/f64 and 1/8 replicates;
                  kernel, plain and `index_select` times; the byte bound
   k2_k3_k4_vs_plain  the routed (v4) plan of the same CSR, with its build
-                 seconds and geometry; tile permute, route stage and fused
-                 middle each bit-equal in f32 to its plain version at the
-                 plan's shapes; kernel, plain and (K2, K3) `index_select`
-                 times; the byte bounds. Then the replicate-axis arms of
-                 the route stage and the fused middle at 8 replicates: each
-                 bit-equal to its plain version and to 8 launches without
-                 the axis, with the same times and bounds (tables once,
-                 values 8 times)
+                 seconds and geometry and the seconds and bytes of its
+                 composed source offsets; tile permute, route stage and
+                 fused middle each bit-equal in f32 to its plain version at
+                 the plan's shapes, the route stage in each variant (shared
+                 memory for the expand stage, through L2 for the reduce
+                 stage, f64, and a plan of 128-row chunks); kernel, plain
+                 and (K2, K3) `index_select` times between CUDA events, and
+                 for K2 and K3 also the profiler's device time per launch
+                 of the kernel and of `index_select`, K2 for one tile and
+                 for 8 replicates; the byte bounds. Then the replicate-axis
+                 arms of the route stage and the fused middle at 8
+                 replicates: each bit-equal to its plain version and to 8
+                 launches without the axis, with the same times and
+                 bounds (tables once, values 8 times)
   em_full_width  the same CSR as an AlignmentStore through
                  `perform_inference_and_write_output` on the card, f32:
                  `--em-impl v4` with 8 bootstrap replicates (one batched
@@ -101,6 +107,7 @@ from oarfish_tpu_torch.ops import tile_permute as tp
 from oarfish_tpu_torch.ops.bootstrap import BOOT_BATCH, sample_multiplicities
 from oarfish_tpu_torch.ops.em import uniform_init
 from oarfish_tpu_torch.ops.em_fast import FastEmData
+from oarfish_tpu_torch.ops.static_permute import GlobalRoute
 from oarfish_tpu_torch.quant.bulk import perform_inference_and_write_output
 
 # the JAX package is named in the kernels line, never imported
@@ -138,6 +145,7 @@ REPLICATES = 8  # one bootstrap batch
 def reset_launch_counts() -> None:
     for module, counter, _, _ in KERNELS.values():
         setattr(module, counter, 0)
+    rs.variant_launch_count.update(shared=0, gather=0)
 
 
 def launch_counts() -> dict:
@@ -523,6 +531,74 @@ def bound(n_bytes: int, n_ops: int) -> dict:
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")
 
 
+def device_ms(fn, device, calls: int = 20, attempts: int = 4):
+    """Device time of one `fn()` in ms by `torch.profiler`: the kernels'
+    own time on the card, without the host's time to launch them.
+
+    Now and then a profiling session hands back no kernel records at all
+    (CUPTI drops the window); it is then profiled anew. Where every attempt
+    comes back empty the time is not measured (None): the event times and
+    every check of the run stand without it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize(device)
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize(device)
+        total = sum(e.device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+        if total > 0:
+            return total / calls / 1e3
+        logging.getLogger(__name__).warning(
+            "the profiler saw no device time; profiling again")
+    logging.getLogger(__name__).warning(
+        "the profiler saw no device time in %d attempts: not measured",
+        attempts)
+    return None
+
+
+def stage_variants_cr128(device) -> dict:
+    """Both stages of a route of 64 chunks of 128 rows (the shared-memory
+    variant in f32 and f64: the expand stage on tile-after-tile values, the
+    reduce stage on the quota view), with `mul`, bit for bit against the
+    plain version; and a batch of 3 against 3 launches without the axis."""
+    rng = np.random.default_rng(3)
+    n = 64 * 128 * rs.LANES
+    n_data = int(n * 0.8)
+    out_idx = np.sort(rng.choice(n, size=n_data, replace=False))
+    in_idx = rng.permutation(n)[:n_data]
+    plan = GlobalRoute(out_idx, in_idx, n, chunk_rows=128, device=device).plan
+    ex, red = plan.expand_stage, plan.reduce_stage
+    res = dict(Q=plan.Q, R1=plan.R1, R3=plan.R3, max_abs_err=0.0)
+    for dtype in (torch.float32, torch.float64):
+        rows = plan.n_src * 128
+        x = torch.as_tensor(rng.normal(size=(3, rows, rs.LANES)),
+                            device=device).to(dtype)
+        mul = torch.as_tensor(rng.normal(size=(rows, rs.LANES)),
+                              device=device).to(dtype)
+        y = rs.route_stage_cuda(x, ex, mul)
+        res["max_abs_err"] = max(
+            res["max_abs_err"],
+            bit_equal("route_stage cr128 expand", y, ex.reference(x, mul)),
+            bit_equal("route_stage cr128 expand", y,
+                      torch.stack([rs.route_stage_cuda(x[b], ex, mul)
+                                   for b in range(3)]),
+                      against="3 launches without the axis"))
+        if plan.Q % rs.LANES == 0:
+            q = plan.quota_view(y)
+            res["max_abs_err"] = max(res["max_abs_err"], bit_equal(
+                "route_stage cr128 reduce_strided",
+                rs.route_stage_cuda(q, red), red.reference(q)))
+        res[f"variants_{str(dtype)[6:]}"] = [
+            rs.stage_variant(dtype, 128), rs.stage_variant(dtype, plan.R3)]
+    return res
+
+
 def phase_k2_k3_k4_vs_plain(csr, R, T, device) -> dict:
     """The three kernels of the routed iteration on the bench CSR's own
     plan, each against its plain version, f32, bit for bit."""
@@ -565,44 +641,100 @@ def phase_k2_k3_k4_vs_plain(csr, R, T, device) -> dict:
 
     res = {}
 
-    # K2: both tile permutes of the m-step
+    # the source offsets the plan composed once per stage (on the card,
+    # from the int8 tables), timed again here
+    stages = dict(p_a_expand=pa.expand_stage, p_a_reduce=pa.reduce_stage,
+                  p_b_expand=pb.expand_stage, p_b_reduce=pb.reduce_stage,
+                  t_in=data.t_in.stage, t_out=data.t_out.stage)
+    torch.cuda.synchronize(device)
+    t0 = time.time()
+    for st in stages.values():
+        rs.Stage(st.r1, st.src, st.row, st.r2, st.mask, st.n_chunks, st.R_in,
+                 st.R_out)
+    torch.cuda.synchronize(device)
+    plan["offsets"] = dict(
+        build_s=time.time() - t0,
+        bytes={k: nbytes(st.off) for k, st in stages.items()},
+        dtype={k: str(st.off.dtype) for k, st in stages.items()})
+
+    # K2: both tile permutes of the m-step, and one launch for a batch of 8
     k2 = {}
     for tag, t in (("t_in", data.t_in), ("t_out", data.t_out)):
         x = values(t.n_tiles * t.rows, L)
         args = (x, t.r1, t.r2, t.src, t.lane, t.rows, t.n_tiles)
-        err = bit_equal(f"tile_permute {tag}", tp.tile_permute_cuda(*args),
+        err = bit_equal(f"tile_permute {tag}",
+                        tp.tile_permute_cuda(x, t.stage),
                         tp.tile_permute_reference(*args))
         idx = flat_index(lambda v: tp.tile_permute_reference(
             v.reshape(-1, L), *args[1:]), x.numel(), device)
         flat = x.reshape(-1)
         k2[tag] = dict(
             max_abs_err=err,
-            ms=time_ms(lambda: tp.tile_permute_cuda(*args), device),
+            ms=time_ms(lambda: tp.tile_permute_cuda(x, t.stage), device),
             plain_ms=time_ms(lambda: tp.tile_permute_reference(*args),
                              device, 5, 5),
             library_ms=time_ms(lambda: flat.index_select(0, idx), device),
+            device_ms=device_ms(lambda: tp.tile_permute_cuda(x, t.stage),
+                                device),
+            library_device_ms=device_ms(lambda: flat.index_select(0, idx),
+                                        device),
+            moved_bytes=nbytes(x, x, t.stage.off),
             **bound(nbytes(x, x, t.r1, t.r2, t.src, t.lane), 0))
+    t = data.t_in
+    x8 = values(REPLICATES * t.n_tiles * t.rows, L)
+    args8 = (x8, t.r1, t.r2, t.src, t.lane, t.rows, t.n_tiles, REPLICATES)
+    err = max(
+        bit_equal("tile_permute t_in x8",
+                  tp.tile_permute_cuda(x8, t.stage, REPLICATES),
+                  tp.tile_permute_reference(*args8)),
+        bit_equal("tile_permute t_in x8",
+                  tp.tile_permute_cuda(x8, t.stage, REPLICATES),
+                  torch.cat([tp.tile_permute_cuda(part, t.stage)
+                             for part in x8.chunk(REPLICATES)]),
+                  against=f"{REPLICATES} launches without the axis"))
+    flat8 = x8.reshape(REPLICATES, -1)
+    idx = flat_index(lambda v: tp.tile_permute_reference(
+        v.reshape(-1, L), *args[1:]), t.n_tiles * t.rows * L, device)
+    k2["t_in_x8"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: tp.tile_permute_cuda(x8, t.stage, REPLICATES),
+                   device),
+        library_ms=time_ms(lambda: flat8.index_select(1, idx), device),
+        device_ms=device_ms(
+            lambda: tp.tile_permute_cuda(x8, t.stage, REPLICATES), device),
+        library_device_ms=device_ms(lambda: flat8.index_select(1, idx),
+                                    device),
+        moved_bytes=nbytes(x8, x8, t.stage.off),
+        **bound(nbytes(x8, x8, t.r1, t.r2, t.src, t.lane), 0))
     res["tile_permute"] = k2
+    del x8, flat8
 
-    # K3: the expand stage with the weights, and the reduce stage the plan
-    # takes (strided where the quota is whole lane tiles)
+    # K3: the expand stage with the weights (shared-memory variant), and
+    # the reduce stage the plan takes (strided where the quota is whole lane
+    # tiles; through L2)
     k3 = {}
+    ex, red = pa.expand_stage, pb.reduce_stage
     x = values(pa.n_src * CR, L)
     w_txp = data.w_txp.reshape(-1, L)
     a1 = (x, pa.s1_r1, pa.s1_src, pa.s1_row, pa.s1_r2, None, pa.n_src, CR,
           pa.R1)
-    y1 = rs.route_stage_cuda(*a1, mul=w_txp)
+    y1 = rs.route_stage_cuda(x, ex, mul=w_txp)
     err = bit_equal("route_stage expand_y1", y1,
                     rs.route_stage_reference(*a1, mul=w_txp))
     idx_expand = flat_index(lambda v: rs.route_stage_reference(
         v.reshape(-1, L), *a1[1:]), x.numel(), device)
     flat = x.reshape(-1)
     k3["expand_y1_mul"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: rs.route_stage_cuda(*a1, mul=w_txp), device),
+        variant=rs.stage_variant(x.dtype, CR), max_abs_err=err,
+        ms=time_ms(lambda: rs.route_stage_cuda(x, ex, mul=w_txp), device),
         plain_ms=time_ms(lambda: rs.route_stage_reference(*a1, mul=w_txp),
                          device, 5, 5),
         library_ms=time_ms(lambda: flat.index_select(0, idx_expand), device),
+        device_ms=device_ms(lambda: rs.route_stage_cuda(x, ex, mul=w_txp),
+                            device),
+        library_device_ms=device_ms(lambda: flat.index_select(0, idx_expand),
+                                    device),
+        moved_bytes=nbytes(x, w_txp, y1, ex.off),
         **bound(nbytes(x, w_txp, y1, pa.s1_r1, pa.s1_src, pa.s1_row,
                        pa.s1_r2), y1.numel()))
     yq = values(pb.n_src * pb.R1, L)
@@ -614,19 +746,49 @@ def phase_k2_k3_k4_vs_plain(csr, R, T, device) -> dict:
         zq = zq.contiguous().reshape(pb.n_dst * pb.R3, L)
     a3 = (zq, pb.s3_r1, pb.s3_src, pb.s3_row, pb.s3_r2, pb.s3_mask,
           pb.n_dst, pb.R3, CR)
-    out3 = rs.route_stage_cuda(*a3)
+    out3 = rs.route_stage_cuda(zq, red)
     err = bit_equal(f"route_stage {tag}", out3,
                     rs.route_stage_reference(*a3))
     idx_reduce = flat_index(lambda v: rs.route_stage_reference(
         v.reshape(zq.shape), *a3[1:]), zq.numel(), device)
     flat = zq.reshape(-1)
     k3[tag] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: rs.route_stage_cuda(*a3), device),
+        variant=rs.stage_variant(zq.dtype, pb.R3), max_abs_err=err,
+        ms=time_ms(lambda: rs.route_stage_cuda(zq, red), device),
         plain_ms=time_ms(lambda: rs.route_stage_reference(*a3), device, 5, 5),
         library_ms=time_ms(lambda: flat.index_select(0, idx_reduce), device),
+        device_ms=device_ms(lambda: rs.route_stage_cuda(zq, red), device),
+        library_device_ms=device_ms(lambda: flat.index_select(0, idx_reduce),
+                                    device),
+        moved_bytes=nbytes(zq, out3, red.off),
         **bound(nbytes(zq, out3, pb.s3_r1, pb.s3_src, pb.s3_row, pb.s3_r2,
                        pb.s3_mask), 0))
+    # the other variants and types at the plan's shapes: f64 (the expand
+    # stage through L2, 256 KB a chunk), f32 values that do not start on 16
+    # bytes (the expand stage through L2 with int16 offsets), and both
+    # stages of a plan of 128-row chunks (shared memory in f32 and f64)
+    x64, w64 = x.double(), w_txp.double()
+    k3["expand_y1_mul_f64"] = dict(
+        variant=rs.stage_variant(torch.float64, CR),
+        max_abs_err=bit_equal(
+            "route_stage expand_y1 f64", rs.route_stage_cuda(x64, ex, w64),
+            rs.route_stage_reference(x64, *a1[1:], mul=w64)))
+    k3[f"{tag}_f64"] = dict(
+        variant=rs.stage_variant(torch.float64, pb.R3),
+        max_abs_err=bit_equal(
+            f"route_stage {tag} f64", rs.route_stage_cuda(zq.double(), red),
+            rs.route_stage_reference(zq.double(), *a3[1:])))
+    del x64, w64
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=device)
+    shifted = shifted[1:].view_as(x)
+    shifted.copy_(x)
+    k3["expand_y1_mul_unaligned"] = dict(
+        variant=rs.stage_variant(x.dtype, CR, aligned=False),
+        max_abs_err=bit_equal(
+            "route_stage expand_y1 unaligned",
+            rs.route_stage_cuda(shifted, ex, w_txp), y1))
+    del shifted
+    k3["cr128"] = stage_variants_cr128(device)
     res["route_stage"] = k3
 
     # K4: the fused middle on the expand stage's own output, without and
@@ -686,35 +848,40 @@ def phase_k2_k3_k4_vs_plain(csr, R, T, device) -> dict:
     arm3 = {}
     x8 = values(B, pa.n_src * CR, L)
     a1b = (x8, *a1[1:])
-    y8 = rs.route_stage_cuda(*a1b, mul=w_txp)
+    y8 = rs.route_stage_cuda(x8, ex, mul=w_txp)
     err = both("route_stage expand_y1 x8", y8,
                rs.route_stage_reference(*a1b, mul=w_txp),
-               lambda b: rs.route_stage_cuda(x8[b], *a1[1:], mul=w_txp))
+               lambda b: rs.route_stage_cuda(x8[b], ex, mul=w_txp))
     flat8 = x8.reshape(B, -1)
     arm3["expand_y1_mul"] = dict(
         max_abs_err=err,
-        ms=time_ms(lambda: rs.route_stage_cuda(*a1b, mul=w_txp), device),
+        ms=time_ms(lambda: rs.route_stage_cuda(x8, ex, mul=w_txp), device),
         plain_ms=time_ms(lambda: rs.route_stage_reference(*a1b, mul=w_txp),
                          device, 3, 3),
         library_ms=time_ms(
             lambda: [flat8[b].index_select(0, idx_expand) for b in range(B)],
             device),
+        device_ms=device_ms(lambda: rs.route_stage_cuda(x8, ex, mul=w_txp),
+                            device),
+        moved_bytes=nbytes(x8, w_txp, y8, ex.off),
         **bound(nbytes(x8, w_txp, y8, pa.s1_r1, pa.s1_src, pa.s1_row,
                        pa.s1_r2), y8.numel()))
     yq8 = values(B, pb.n_src * pb.R1, L)
     a3b = (pb.quota_view(yq8), *a3[1:])
-    out8 = rs.route_stage_cuda(*a3b)
+    out8 = rs.route_stage_cuda(a3b[0], red)
     err = both("route_stage reduce_strided x8", out8,
                rs.route_stage_reference(*a3b),
-               lambda b: rs.route_stage_cuda(pb.quota_view(yq8[b]), *a3[1:]))
+               lambda b: rs.route_stage_cuda(pb.quota_view(yq8[b]), red))
     flat8 = yq8.reshape(B, -1)
     arm3["reduce_strided"] = dict(
         max_abs_err=err,
-        ms=time_ms(lambda: rs.route_stage_cuda(*a3b), device),
+        ms=time_ms(lambda: rs.route_stage_cuda(a3b[0], red), device),
         plain_ms=time_ms(lambda: rs.route_stage_reference(*a3b), device, 3, 3),
         library_ms=time_ms(
             lambda: [flat8[b].index_select(0, idx_reduce) for b in range(B)],
             device),
+        device_ms=device_ms(lambda: rs.route_stage_cuda(a3b[0], red), device),
+        moved_bytes=nbytes(yq8, out8, red.off),
         **bound(nbytes(yq8, out8, pb.s3_r1, pb.s3_src, pb.s3_row, pb.s3_r2,
                        pb.s3_mask), 0))
     res["route_stage_replicates"] = arm3
@@ -806,6 +973,12 @@ def phase_em_full_width(csr, R, T, device, tmp: Path, capture, fused: bool):
                    bootstrap_s=boot_s, bootstrap_iterations=boot_iters,
                    launches=launched, wall_s=round(wall, 3))
         if impl == "v4":
+            # the bench plan's expand stage takes the shared-memory variant
+            # of the route stage, its reduce stage the gather through L2
+            variants = dict(rs.variant_launch_count)
+            assert variants == dict(shared=m_steps + batched,
+                                    gather=m_steps + batched), variants
+            res["route_stage_variant_launches"] = variants
             res["routing_s"] = capture.routing[n_route]
             res["plan_cache_hit"] = capture.cache_hits > hits
         return counts, res
@@ -1198,7 +1371,13 @@ def main(argv=None) -> int:
 
     def also(measured, tag):
         return {f"{k}_{tag}": measured[k]
-                for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+                for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                          "device_ms", "library_device_ms", "variant")
+                if k in measured}
+
+    def device_times(measured):
+        return {k: measured[k] for k in ("device_ms", "library_device_ms",
+                                         "variant") if k in measured}
 
     k2, k3, k4 = (k234[k] for k in ("tile_permute", "route_stage",
                                     "route_middle"))
@@ -1213,11 +1392,14 @@ def main(argv=None) -> int:
         entry("tile_permute",
               dict(k2["t_in"], max_abs_err=max(
                   v["max_abs_err"] for v in k2.values())),
-              measured_on="t_in", **also(k2["t_out"], "t_out")),
+              measured_on="t_in", **device_times(k2["t_in"]),
+              **also(k2["t_out"], "t_out"),
+              **also(k2["t_in_x8"], "8_replicates")),
         entry("route_stage",
               dict(k3["expand_y1_mul"], max_abs_err=max(
                   v["max_abs_err"] for v in k3.values())),
               measured_on="expand_y1 with mul",
+              **device_times(k3["expand_y1_mul"]),
               **also(k3[reduce_tag], reduce_tag)),
     ]
     if k4:  # a plan without a level table never launches the fused middle
@@ -1233,6 +1415,7 @@ def main(argv=None) -> int:
         dict(arm3["expand_y1_mul"], max_abs_err=max(
             v["max_abs_err"] for v in arm3.values())),
         replicates=REPLICATES, measured_on="expand_y1 with mul",
+        **device_times(arm3["expand_y1_mul"]),
         **also(arm3["reduce_strided"], "reduce_strided")))
     kernels.append(entry(
         "route_middle_replicates",

@@ -42,11 +42,13 @@ import torch
 
 from .route_stage import (
     LANES,
+    SHARED_LIMIT,
     check_operand,
     check_stage_tables,
     check_values,
     input_tiles,
     kernel_function,
+    on_device,
     ptr,
     stage_apply_reference,
 )
@@ -56,8 +58,8 @@ from .route_stage import (
 launch_count = 0
 replicate_launch_count = 0
 
-# bytes of shared memory a block may take for its chunk (csrc/route_middle.cu)
-SHARED_LIMIT = 227 * 1024
+_P, _I = ctypes.c_void_p, ctypes.c_int
+ROUTE_MIDDLE_ARGS = [_P] * 15 + [_I, _I, _I, _I, _I, ctypes.c_double, _I, _P]
 
 
 def route_middle_reference(
@@ -125,11 +127,8 @@ def route_middle_cuda(
     if B:
         sources = torch.empty((n_chunks, (R_c + R_q) * LANES),
                               dtype=torch.int32, device=dev)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn = kernel_function(
-        "route_middle", y.dtype,
-        [p] * 15 + [i, i, i, i, i, ctypes.c_double, i, p])
-    with torch.cuda.device(dev):
+    fn = kernel_function("route_middle", y.dtype, ROUTE_MIDDLE_ARGS)
+    with on_device(dev):
         err = fn(
             y.data_ptr(), lvl.data_ptr(), a_r1.data_ptr(),
             ptr(a_src) if R_q > LANES else None, a_row.data_ptr(),

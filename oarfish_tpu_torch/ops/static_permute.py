@@ -31,6 +31,11 @@ chunk ((input row, quota row) and (quota row, output row)), always
 128-colorable (Konig); irregular degrees are regularized with dummy
 edges before coloring.
 
+Each stage's tables travel as a `route_stage.Stage`, which checks them
+and composes every output element's source offset once, on the plan's
+device, whichever way the plan was made (`GlobalRoute`, `convert`, the
+plan cache): the kernels read the offsets, the plain versions the tables.
+
 A batch of replicates goes through the same tables in one launch a
 stage: `GlobalRoutePlan.expand_y1_batch` / `reduce_strided_batch` take a
 leading replicate axis (the replicate arm of `route_stage.py`), and
@@ -46,7 +51,7 @@ from __future__ import annotations
 import math
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -60,7 +65,7 @@ from .permute_plan import (
     route_tables_native,
     route_tables_pair_native,
 )
-from .route_stage import route_stage
+from .route_stage import Stage, route_stage
 from .tile_permute import tile_permute
 
 
@@ -132,6 +137,13 @@ class BatchTilePermute:
     lane: torch.Tensor  # [n_tiles, H, 128, 128] i8
     rows: int
     n_tiles: int
+    stage: Stage = field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        # a gather-network stage with as many input as output rows
+        object.__setattr__(self, "stage", Stage(
+            self.r1, self.src, self.lane, self.r2, None, self.n_tiles,
+            self.rows, self.rows))
 
     @staticmethod
     def build(plans: List[DeviceTilePlan], device=None) -> "BatchTilePermute":
@@ -159,8 +171,7 @@ class BatchTilePermute:
         batched = x.dim() == 2 and x.shape[1] == n
         reps = x.shape[0] if batched else 1
         out = tile_permute(
-            x.reshape(reps * self.n_tiles * self.rows, LANES), self.r1,
-            self.r2, self.src, self.lane, self.rows, self.n_tiles,
+            x.reshape(reps * self.n_tiles * self.rows, LANES), self.stage,
             replicates=reps,
         )
         return out.reshape(reps, n) if batched else out.reshape(-1)
@@ -269,6 +280,18 @@ class GlobalRoutePlan:
     R1: int
     R3: int
     chunk_rows: int  # CR: 128-lane rows per chunk (CR*128 elements)
+    # stage 1 (chunk space -> quota) and stage 3 (quota -> chunk space)
+    expand_stage: Stage = field(init=False, repr=False, compare=False)
+    reduce_stage: Stage = field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        CR = self.chunk_rows
+        object.__setattr__(self, "expand_stage", Stage(
+            self.s1_r1, self.s1_src, self.s1_row, self.s1_r2, None,
+            self.n_src, CR, self.R1))
+        object.__setattr__(self, "reduce_stage", Stage(
+            self.s3_r1, self.s3_src, self.s3_row, self.s3_r2, self.s3_mask,
+            self.n_dst, self.R3, CR))
 
     @property
     def device(self) -> torch.device:
@@ -296,10 +319,7 @@ class GlobalRoutePlan:
         mul_pad = None if mul is None else self._pad(mul).reshape(
             n_src * CR, LANES
         )
-        return route_stage(
-            x_pad, self.s1_r1, self.s1_src, self.s1_row, self.s1_r2,
-            None, n_src, CR, self.R1, mul=mul_pad,
-        )
+        return route_stage(x_pad, self.expand_stage, mul=mul_pad)
 
     def expand(self, x: torch.Tensor,
                mul: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -315,10 +335,7 @@ class GlobalRoutePlan:
     def reduce(self, zg: torch.Tensor, sliced: bool = True) -> torch.Tensor:
         """Stage 3: post-transpose quota tensor -> chunk space (data
         slots populated, everything else zero)."""
-        y3 = route_stage(
-            zg, self.s3_r1, self.s3_src, self.s3_row, self.s3_r2,
-            self.s3_mask, self.n_dst, self.R3, self.chunk_rows,
-        )
+        y3 = route_stage(zg, self.reduce_stage)
         out = y3.reshape(-1)
         return out[: self.n_out] if sliced else out
 
@@ -341,20 +358,14 @@ class GlobalRoutePlan:
         mul_pad = None if mul is None else self._pad(mul).reshape(
             n_src * CR, LANES
         )
-        return route_stage(
-            x_pad, self.s1_r1, self.s1_src, self.s1_row, self.s1_r2,
-            None, n_src, CR, self.R1, mul=mul_pad,
-        )
+        return route_stage(x_pad, self.expand_stage, mul=mul_pad)
 
     def reduce_strided_batch(self, y1_b: torch.Tensor,
                              sliced: bool = True) -> torch.Tensor:
         """`reduce_strided` for B replicates in one launch: `y1_b`
         `[B, n_src * R1, 128]` -> `[B, n_pad_out]` (the tail past `n_out`
         is zero)."""
-        y3 = route_stage(
-            self.quota_view(y1_b), self.s3_r1, self.s3_src, self.s3_row,
-            self.s3_r2, self.s3_mask, self.n_dst, self.R3, self.chunk_rows,
-        )
+        y3 = route_stage(self.quota_view(y1_b), self.reduce_stage)
         out = y3.reshape(y1_b.shape[0], -1)
         return out[:, : self.n_out] if sliced else out
 
@@ -365,10 +376,7 @@ class GlobalRoutePlan:
         column slab from every source chunk, no transpose materializes.
         Requires Q % 128 == 0, so the slab is whole lane tiles and the
         stage tables apply unchanged."""
-        y3 = route_stage(
-            self.quota_view(y1), self.s3_r1, self.s3_src, self.s3_row,
-            self.s3_r2, self.s3_mask, self.n_dst, self.R3, self.chunk_rows,
-        )
+        y3 = route_stage(self.quota_view(y1), self.reduce_stage)
         out = y3.reshape(-1)
         return out[: self.n_out] if sliced else out
 

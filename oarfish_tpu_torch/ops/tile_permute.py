@@ -9,10 +9,15 @@ tables (`static_permute.DeviceTilePlan`):
     s2[hd * 128 + r', c] = s1[src[hd, c, r'] * 128 + lane[hd, c, r'], c]
     out[r, c] = s2[r, r2[r, c]]
 
+That is a gather-network stage with as many input as output rows, so the
+tables travel as a `route_stage.Stage` (`row` = `lane`, no mask), which
+checks them and composes each element's source offset once.
+
 The JAX kernel has no replicate axis of its own (`vmap` adds a grid axis
 there). Here `replicates = B` says that `x` holds B batches of the
 `n_tiles` tiles one after another, `[B * n_tiles * R, 128]`; tile j of
-every batch goes through tables j, in one launch.
+every batch goes through tables j, in one launch that reads the offsets
+once.
 
 On a CUDA tensor `tile_permute` launches the hand-written kernel
 `csrc/tile_permute.cu` (built at first use by `kernels/build.py`) or
@@ -29,13 +34,19 @@ import torch
 from .route_stage import (
     KERNEL_SUFFIX,
     LANES,
+    Stage,
     check_operand,
     kernel_function,
+    on_device,
     stage_apply_reference,
 )
 
 # number of kernel launches made by `tile_permute` in this process
 launch_count = 0
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# x, off, off_bytes, out, n_tiles, rows, B, stream
+TILE_PERMUTE_ARGS = [_P, _P, _I, _P, _I, _I, _I, _P]
 
 
 def tile_permute_reference(
@@ -51,10 +62,8 @@ def tile_permute_reference(
     return out.reshape(replicates * n_tiles * rows, LANES)
 
 
-def tile_permute_cuda(
-    x: torch.Tensor, r1: torch.Tensor, r2: torch.Tensor, src: torch.Tensor,
-    lane: torch.Tensor, rows: int, n_tiles: int, replicates: int = 1,
-) -> torch.Tensor:
+def tile_permute_cuda(x: torch.Tensor, stage: Stage,
+                      replicates: int = 1) -> torch.Tensor:
     """Launch the CUDA kernel, once whatever the number of replicates.
     Raises on anything it does not take and on a refused launch."""
     global launch_count
@@ -62,24 +71,19 @@ def tile_permute_cuda(
         raise ValueError("tile_permute_cuda needs a CUDA tensor")
     if x.dtype not in KERNEL_SUFFIX:
         raise TypeError(f"no tile-permute kernel for {x.dtype}")
+    rows, n_tiles = stage.R_in, stage.n_chunks
     total = replicates * n_tiles
-    if rows % LANES or replicates < 1 or total * rows * LANES >= 2**31:
+    if replicates < 1 or n_tiles * rows * LANES >= 2**31:
         raise ValueError(f"unsupported tile batch: {replicates} x {n_tiles} "
                          f"x {rows} rows")
-    dev, i8, H = x.device, torch.int8, rows // LANES
-    check_operand("x", x, x.dtype, (total * rows, LANES), dev)
-    check_operand("r1", r1, i8, (n_tiles, rows, LANES), dev)
-    check_operand("r2", r2, i8, (n_tiles, rows, LANES), dev)
-    check_operand("src", src, i8, (n_tiles, H, LANES, LANES), dev)
-    check_operand("lane", lane, i8, (n_tiles, H, LANES, LANES), dev)
+    check_operand("x", x, x.dtype, (total * rows, LANES), stage.off.device)
     out = torch.empty_like(x)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn = kernel_function("tile_permute", x.dtype,
-                         [p, p, p, p, p, p, i, i, i, p])
-    with torch.cuda.device(dev):
+    fn = kernel_function("tile_permute", x.dtype, TILE_PERMUTE_ARGS)
+    dev = x.device
+    with on_device(dev):
         err = fn(
-            x.data_ptr(), r1.data_ptr(), r2.data_ptr(), src.data_ptr(),
-            lane.data_ptr(), out.data_ptr(), total, rows, n_tiles,
+            x.data_ptr(), stage.off.data_ptr(), stage.off.element_size(),
+            out.data_ptr(), n_tiles, rows, replicates,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
@@ -89,10 +93,10 @@ def tile_permute_cuda(
     return out
 
 
-def tile_permute(
-    x: torch.Tensor, r1: torch.Tensor, r2: torch.Tensor, src: torch.Tensor,
-    lane: torch.Tensor, rows: int, n_tiles: int, replicates: int = 1,
-) -> torch.Tensor:
+def tile_permute(x: torch.Tensor, stage: Stage,
+                 replicates: int = 1) -> torch.Tensor:
     """The kernel for a CUDA tensor, the plain version for a CPU tensor."""
-    fn = tile_permute_cuda if x.is_cuda else tile_permute_reference
-    return fn(x, r1, r2, src, lane, rows, n_tiles, replicates)
+    if x.is_cuda:
+        return tile_permute_cuda(x, stage, replicates)
+    return tile_permute_reference(x, stage.r1, stage.r2, stage.src, stage.row,
+                                  stage.R_in, stage.n_chunks, replicates)

@@ -13,6 +13,12 @@ through `_run_route_stage(..., B=B)` / `_run_middle_stage(..., B=B)` and the
 port's plain versions with B in {1, 3}, and each replicate must also equal
 what a call without the axis gives.
 
+The source offsets that the port's plans compose from the tables (what the
+CUDA kernels of K2 and K3 read) are held to the same outputs through a
+plain torch gather, `through_offsets`, which does the kernels' index
+arithmetic: -1 gives 0, the quota view's rows split by the multiply-high of
+`route_stage.q_inverse`.
+
 Tolerance: none. K2 and K3 move f32 values (K3 with one product per
 element when `mul` is given); K4 adds the rows of a group in the order of
 the JAX kernel's butterfly and divides once. All outputs must be equal bit
@@ -66,6 +72,28 @@ def bits(a):
     return np.ascontiguousarray(np.asarray(a)).tobytes()
 
 
+def through_offsets(x, stage, mul=None):
+    """The stage as its CUDA kernels compute it, in plain torch: values of
+    either layout (behind a replicate axis or not) gathered through
+    `stage.off`, 0 where an offset is -1."""
+    B = x.shape[0] if x.dim() in (3, 5) else 0
+    Q = x.shape[-2] * LANES if x.dim() >= 4 else 0
+    off = stage.off.long().reshape(stage.n_chunks, -1)
+    j = torch.arange(stage.n_chunks).reshape(-1, 1)
+    e = off.clamp(min=0)
+    tile_after_tile = j * stage.R_in * LANES + e
+    if Q:
+        s = ((e >> 7) * rs.q_inverse(Q)) >> 32
+        src = (s * stage.n_chunks + j) * Q + (e - s * Q)
+    else:
+        src = tile_after_tile
+    v = x.reshape(max(B, 1), -1)[:, src.reshape(-1)]
+    if mul is not None:
+        v = v * mul.reshape(-1)[tile_after_tile.reshape(-1)]
+    v = torch.where(off.reshape(-1) < 0, torch.zeros_like(v), v)
+    return v.reshape(*x.shape[:1 if B else 0], -1, LANES)
+
+
 def random_route(seed, n_chunks, chunk_rows, cover=0.8):
     rng = np.random.default_rng(seed)
     n = n_chunks * chunk_rows * LANES
@@ -95,6 +123,9 @@ def test_tile_permute_bit_equal_to_pallas(seed, rows, n_tiles):
         got = plan(torch.from_numpy(x))
         assert got.dtype == torch.float32
         assert bits(got.numpy()) == bits(want)
+        # the composed offsets: a permutation, nothing is -1
+        assert plan.stage.off.dtype == rs.offset_dtype(rows)
+        assert bits(through_offsets(torch.from_numpy(x), plan.stage)) == bits(want)
     np.testing.assert_array_equal(
         want, np.concatenate([x[i * rows * LANES:(i + 1) * rows * LANES][p]
                               for i, p in enumerate(perms)]))
@@ -127,9 +158,12 @@ def test_tile_permute_replicates_share_the_tables(B):
     x = rng.normal(size=(B, n_tiles * rows * LANES)).astype(np.float32)
     got = plan(torch.from_numpy(x))
     assert got.shape == x.shape
+    by_offsets = through_offsets(
+        torch.from_numpy(x).reshape(B, -1, LANES), plan.stage)
     for b in range(B):
         assert bits(got[b].numpy()) == bits(jb(jnp.asarray(x[b])))
         assert torch.equal(got[b], plan(torch.from_numpy(x[b])))
+        assert bits(by_offsets[b]) == bits(got[b])
 
 
 # ---------------------------------------------------------------------------
@@ -160,10 +194,14 @@ def test_expand_stage_bit_equal_to_pallas(routes, cr, with_mul):
     mul = rng.normal(size=n).astype(np.float32) if with_mul else None
     want = np.asarray(jp.expand_y1(
         jnp.asarray(x), None if mul is None else jnp.asarray(mul)))
-    got = tpn.expand_y1(torch.from_numpy(x),
-                        None if mul is None else torch.from_numpy(mul))
+    tmul = None if mul is None else torch.from_numpy(mul)
+    got = tpn.expand_y1(torch.from_numpy(x), tmul)
     assert got.shape == (tpn.n_src * tpn.R1, LANES)
     assert bits(got.numpy()) == bits(want)
+    by_offsets = through_offsets(
+        tpn._pad(torch.from_numpy(x)).reshape(-1, LANES), tpn.expand_stage,
+        None if tmul is None else tpn._pad(tmul).reshape(-1, LANES))
+    assert bits(by_offsets) == bits(want)
 
 
 @pytest.mark.parametrize("cr", [r[2] for r in ROUTES])
@@ -178,12 +216,15 @@ def test_reduce_stage_bit_equal_to_pallas(routes, cr, strided):
     if strided:
         want = np.asarray(jp.reduce_strided(jnp.asarray(y1), sliced=False))
         got = tpn.reduce_strided(torch.from_numpy(y1), sliced=False)
+        values = tpn.quota_view(torch.from_numpy(y1))
     else:
         zg = y1.reshape(tpn.n_src, tpn.n_dst, tpn.Q).transpose(1, 0, 2)
         zg = np.ascontiguousarray(zg).reshape(tpn.n_dst * tpn.R3, LANES)
         want = np.asarray(jp.reduce(jnp.asarray(zg), sliced=False))
         got = tpn.reduce(torch.from_numpy(zg), sliced=False)
+        values = torch.from_numpy(zg)
     assert bits(got.numpy()) == bits(want)
+    assert bits(through_offsets(values, tpn.reduce_stage)) == bits(want)
     # masked outputs are exactly zero
     mask = tpn.s3_mask.numpy().reshape(-1) != 0
     assert not got.numpy()[~mask].any()
@@ -207,6 +248,10 @@ def test_expand_stage_replicates_bit_equal_to_pallas(routes, cr, with_mul, B):
     got = tpn.expand_y1_batch(torch.from_numpy(x), tmul)
     assert got.shape == (B, tpn.n_src * tpn.R1, LANES)
     assert bits(got.numpy()) == bits(want)
+    by_offsets = through_offsets(
+        tpn._pad(torch.from_numpy(x)).reshape(B, -1, LANES), tpn.expand_stage,
+        None if tmul is None else tpn._pad(tmul).reshape(-1, LANES))
+    assert bits(by_offsets) == bits(want)
     for b in range(B):
         assert torch.equal(got[b], tpn.expand_y1(torch.from_numpy(x[b]), tmul))
 
@@ -223,6 +268,7 @@ def test_reduce_stage_replicates_bit_equal_to_pallas(routes, cr, strided, B):
         want = np.asarray(jp.reduce_strided_batch(jnp.asarray(y1),
                                                   sliced=False))
         got = tpn.reduce_strided_batch(torch.from_numpy(y1), sliced=False)
+        values = tpn.quota_view(torch.from_numpy(y1))
         single = [tpn.reduce_strided(torch.from_numpy(y1[b]), sliced=False)
                   for b in range(B)]
     else:
@@ -232,18 +278,86 @@ def test_reduce_stage_replicates_bit_equal_to_pallas(routes, cr, strided, B):
             jnp.asarray(zg), jp.s3_r1, jp.s3_src, jp.s3_row, jp.s3_r2,
             jp.s3_mask, jp.n_dst, jp.R3, jp.chunk_rows, True, B=B,
         )).reshape(B, -1)
-        got = rs.route_stage(
-            torch.from_numpy(zg), tpn.s3_r1, tpn.s3_src, tpn.s3_row,
-            tpn.s3_r2, tpn.s3_mask, tpn.n_dst, tpn.R3, tpn.chunk_rows,
-        ).reshape(B, -1)
+        values = torch.from_numpy(zg)
+        got = rs.route_stage(values, tpn.reduce_stage).reshape(B, -1)
         single = [tpn.reduce(torch.from_numpy(zg[b]), sliced=False)
                   for b in range(B)]
     assert got.shape == (B, tpn.n_dst * tpn.chunk_rows * LANES)
     assert bits(got.numpy()) == bits(want)
+    assert bits(through_offsets(values, tpn.reduce_stage)) == bits(want)
     mask = tpn.s3_mask.numpy().reshape(-1) != 0
     for b in range(B):
         assert torch.equal(got[b], single[b])
         assert not got[b].numpy()[~mask].any()
+
+
+@pytest.mark.parametrize("cr", [r[2] for r in ROUTES])
+@pytest.mark.parametrize("which", ["expand", "reduce"])
+def test_offsets_are_minus_one_exactly_where_the_stage_gives_zero(
+        routes, cr, which):
+    """-1 falls on the masked outputs and on those whose block the input
+    lacks (here a tenth of the block ids made to point outside the input),
+    and nowhere else; every other output comes through the offsets as
+    through the tables."""
+    rng, _, _, _, _, tpn = routes[cr]
+    st = tpn.expand_stage if which == "expand" else tpn.reduce_stage
+    n, R_in, R_out = st.n_chunks, st.R_in, st.R_out
+    src = st.src
+    if R_in > LANES:
+        src = st.src.clone()
+        bad = torch.from_numpy(rng.random(src.shape) < 0.1)
+        src[bad] = torch.from_numpy(rng.choice(
+            [-1, R_in // LANES, 127], size=int(bad.sum()))).to(torch.int8)
+    stage = rs.Stage(st.r1, src, st.row, st.r2, st.mask, n, R_in, R_out)
+    assert stage.off.shape == (n, R_out, LANES)
+    assert stage.off.dtype == rs.offset_dtype(R_in)
+    # the outputs the tables make 0, read off the tables themselves
+    ro = torch.arange(R_out).reshape(1, R_out, 1)
+    zero = torch.zeros(n, R_out, LANES, dtype=torch.bool)
+    if R_in > LANES:
+        blk = src.long()[torch.arange(n).reshape(-1, 1, 1), ro // LANES,
+                         st.r2.long(), ro % LANES]
+        zero |= (blk < 0) | (blk >= R_in // LANES)
+    if st.mask is not None:
+        zero |= st.mask == 0
+    assert torch.equal(stage.off == -1, zero)
+    assert bool(zero.any()) == (R_in > LANES or st.mask is not None)
+    assert int(stage.off.max()) < R_in * LANES
+    x = torch.from_numpy(
+        rng.normal(size=(n * R_in, LANES)).astype(np.float32))
+    want = stage.reference(x)
+    assert bits(through_offsets(x, stage)) == bits(want)
+    want = want.reshape(n, R_out, LANES)
+    assert not want[zero].any() and want[~zero].ne(0).all()
+
+
+@pytest.mark.parametrize("dtype,rows,aligned,variant", [
+    (torch.float32, 128, True, "shared"),
+    (torch.float32, 256, True, "shared"),
+    (torch.float32, 384, True, "gather"),  # 49,152 elements: int32 offsets
+    (torch.float32, 512, True, "gather"),
+    (torch.float64, 128, True, "shared"),
+    (torch.float64, 256, True, "gather"),  # 256 KB: over a block's share
+    (torch.float32, 256, False, "gather"),
+    (torch.float64, 128, False, "gather"),
+])
+def test_stage_variant_by_dtype_rows_and_alignment(dtype, rows, aligned,
+                                                   variant):
+    """The shared-memory variant takes a stage whose input tile fits a
+    block (227 KB) with int16 offsets and 16-byte aligned values; every
+    other stage goes through L2."""
+    assert rs.stage_variant(dtype, rows, aligned) == variant
+    assert rs.offset_dtype(rows) == (torch.int16 if rows <= 256
+                                     else torch.int32)
+
+
+@pytest.mark.parametrize("qr", [1, 2, 3, 4, 7, 127, 128, 511, 2047, 65535])
+def test_q_inverse_splits_quota_rows_exactly(qr):
+    """The kernels' multiply-high by `q_inverse(Q)` is the division of a
+    tile row by Q / 128, for every row of a tile the wrapper takes (under
+    2^16 rows)."""
+    ri = torch.arange(2**16, dtype=torch.int64)
+    assert torch.equal((ri * rs.q_inverse(qr * LANES)) >> 32, ri // qr)
 
 
 @pytest.mark.parametrize("cr", [r[2] for r in ROUTES])
@@ -508,11 +622,11 @@ def test_cuda_wrappers_refuse_cpu_tensors(routes):
     _, n, _, _, _, tpn = routes[128]
     x = torch.zeros(n).reshape(-1, LANES)
     with pytest.raises(ValueError, match="CUDA"):
-        rs.route_stage_cuda(x, tpn.s1_r1, tpn.s1_src, tpn.s1_row, tpn.s1_r2,
-                            None, tpn.n_src, 128, tpn.R1)
+        rs.route_stage_cuda(x, tpn.expand_stage)
+    tiles = tsp.BatchTilePermute.build(
+        [tsp.DeviceTilePlan.build(np.arange(128 * LANES), 128)], device="cpu")
     with pytest.raises(ValueError, match="CUDA"):
-        tp.tile_permute_cuda(x[:128], *[torch.zeros(1, dtype=torch.int8)] * 4,
-                             128, 1)
+        tp.tile_permute_cuda(x[:128], tiles.stage)
     with pytest.raises(ValueError, match="CUDA"):
         rm.route_middle_cuda(x, *[None] * 10, n_chunks=1, R_q=128, R_c=128,
                              thresh=0.0, max_lvl=0)
@@ -656,7 +770,7 @@ def test_route_stage_replicate_arm_on_card(cr, B):
     zg = zg.contiguous().reshape(B, plan.n_dst * plan.R3, LANES)
     s3 = (plan.s3_r1, plan.s3_src, plan.s3_row, plan.s3_r2, plan.s3_mask,
           plan.n_dst, plan.R3, cr)
-    out_t = rs.route_stage(zg, *s3)
+    out_t = rs.route_stage(zg, plan.reduce_stage)
     torch.cuda.synchronize()
     assert rs.launch_count == before + 4
     s1 = (plan.s1_r1, plan.s1_src, plan.s1_row, plan.s1_r2, None,
@@ -675,7 +789,78 @@ def test_route_stage_replicate_arm_on_card(cr, B):
     want[:, out_idx] = (x * mul).cpu().numpy()[:, in_idx]
     np.testing.assert_array_equal(out.cpu().numpy(), want)
     with pytest.raises(ValueError, match="values must be"):
-        rs.route_stage(xb[:, :-1], *s1)
+        rs.route_stage(xb[:, :-1], plan.expand_stage)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("cr", [128, 256, 512])
+def test_route_stage_variants_on_card(cr, dtype, B):
+    """Every variant of the route-stage kernel against its plain version
+    and, with B replicates, against B launches without the axis: the
+    expand stage with and without `mul` in shared memory (f32 at 128 and
+    256 rows, f64 at 128) or through L2 (the rest, and values that do not
+    start on 16 bytes); the masked reduce stage on the quota view and tile
+    after tile (shared memory where its input tile is 128 rows in f32)."""
+    _skip_without_card()
+    rng, n, out_idx, in_idx = random_route(46, 8, cr)
+    plan = tsp.GlobalRoute(out_idx, in_idx, n, chunk_rows=cr,
+                           device="cuda").plan
+    ex, red = plan.expand_stage, plan.reduce_stage
+    assert rs.stage_variant(dtype, cr) == (
+        "shared" if cr * LANES * dtype.itemsize <= rs.SHARED_LIMIT
+        and cr <= 256 else "gather")
+
+    def values(*shape):
+        return torch.from_numpy(rng.normal(size=shape)).to(dtype).cuda()
+
+    x = values(B, plan.n_src * cr, LANES)
+    buf = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")
+    unaligned = buf[1:].view_as(x)  # starts 4 or 8 bytes past 16
+    unaligned.copy_(x)
+    mul = values(plan.n_src * cr, LANES)
+    y = values(B, plan.n_src * plan.R1, LANES)
+    zg = y.reshape(B, plan.n_src, plan.n_dst, plan.Q).transpose(1, 2)
+    zg = zg.contiguous().reshape(B, plan.n_dst * plan.R3, LANES)
+    cases = [(ex, v, m) for v in (x, unaligned) for m in (None, mul)]
+    cases += [(red, v, None) for v in (plan.quota_view(y), zg)]
+    before = rs.launch_count, rs.replicate_launch_count
+    for stage, v, m in cases:
+        got = rs.route_stage(v, stage, mul=m)
+        torch.cuda.synchronize()
+        assert torch.equal(got, stage.reference(v, mul=m))
+        for b in range(B):
+            assert torch.equal(got[b], rs.route_stage(v[b], stage, mul=m))
+    assert (rs.launch_count, rs.replicate_launch_count) == (
+        before[0] + len(cases) * (1 + B), before[1] + len(cases))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rows,n_tiles", [(256, 3), (1664, 1)])
+def test_tile_permute_offsets_on_card(rows, n_tiles, dtype, B):
+    """The tile permute through int16 (256 rows) and int32 (1,664 rows, the
+    EM's tile) offsets: B replicates in one launch equal the plain version
+    and B launches without the axis."""
+    _skip_without_card()
+    rng = np.random.default_rng(47)
+    perms = [rng.permutation(rows * LANES) for _ in range(n_tiles)]
+    plan = tsp.BatchTilePermute.build(
+        [tsp.DeviceTilePlan.build(p, rows) for p in perms], device="cuda")
+    assert plan.stage.off.dtype == rs.offset_dtype(rows)
+    x = torch.from_numpy(
+        rng.normal(size=(B, n_tiles * rows * LANES))).to(dtype).cuda()
+    before = tp.launch_count
+    got = plan(x)
+    torch.cuda.synchronize()
+    assert tp.launch_count == before + 1
+    assert torch.equal(got.reshape(-1, LANES), tp.tile_permute_reference(
+        x.reshape(-1, LANES), plan.r1, plan.r2, plan.src, plan.lane, rows,
+        n_tiles, replicates=B))
+    for b in range(B):
+        assert torch.equal(got[b], plan(x[b]))
 
 
 @pytest.mark.cuda
