@@ -16,22 +16,27 @@ points a user calls. One JSON object per phase goes to standard output:
   k1_vs_plain    sorted-gather kernel vs its plain version on the bench
                  CSR (R=2,000,000 reads, T=200,000 transcripts, A~6M
                  alignments): bit-equal for f32/f64 and 1/8 replicates;
-                 kernel, plain and `index_select` times; the byte bound
+                 kernel, plain and `index_select` times between CUDA
+                 events, and the profiler's device time per launch of the
+                 kernel and of `index_select`; the byte bound
   k2_k3_k4_vs_plain  the routed (v4) plan of the same CSR, with its build
                  seconds and geometry and the seconds and bytes of its
                  composed source offsets; tile permute, route stage and
                  fused middle each bit-equal in f32 to its plain version at
                  the plan's shapes, the route stage in each variant (shared
                  memory for the expand stage, through L2 for the reduce
-                 stage, f64, and a plan of 128-row chunks); kernel, plain
-                 and (K2, K3) `index_select` times between CUDA events, and
-                 for K2 and K3 also the profiler's device time per launch
-                 of the kernel and of `index_select`, K2 for one tile and
-                 for 8 replicates; the byte bounds. Then the replicate-axis
-                 arms of the route stage and the fused middle at 8
-                 replicates: each bit-equal to its plain version and to 8
-                 launches without the axis, with the same times and
-                 bounds (tables once, values 8 times)
+                 stage, f64, and a plan of 128-row chunks), the fused middle
+                 also in f64 (its scratch area in device memory); kernel,
+                 plain and (K2, K3) `index_select` times between CUDA
+                 events, and the profiler's device time per launch of each
+                 kernel (and of `index_select`), K2 for one tile and for 8
+                 replicates; the byte bounds, for K2, K3 and K4 on the
+                 bytes their composed offsets make them move, with the
+                 bound of the int8 tables beside it. Then the
+                 replicate-axis arms of the route stage and the fused
+                 middle at 8 replicates: each bit-equal to its plain
+                 version and to 8 launches without the axis, with the same
+                 times and bounds (offsets once, values 8 times)
   em_full_width  the same CSR as an AlignmentStore through
                  `perform_inference_and_write_output` on the card, f32:
                  `--em-impl v4` with 8 bootstrap replicates (one batched
@@ -82,6 +87,7 @@ import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -139,6 +145,9 @@ KERNELS = {
                                 "ops/static_permute.py:782"),
 }
 ARMS = ("route_stage_replicates", "route_middle_replicates")
+# what the kernels line carries beside each kernel's event time
+DEVICE_TIMES = ("device_ms", "library_device_ms", "variant", "moved_bytes",
+                "table_bound_ms")
 REPLICATES = 8  # one bootstrap batch
 
 
@@ -492,6 +501,10 @@ def phase_k1_vs_plain(csr, T, device) -> dict:
     ms_b8 = time_ms(lambda: kernel(tab8, *args), device)
     plain_ms = time_ms(lambda: sg.gather_rows_reference(tab1, *args), device)
     library_ms = time_ms(lambda: flat1.index_select(0, idx), device)
+    # between events, 10 calls this short measure the host's time to launch
+    # them; the profiler reads the card's own
+    dev_ms = device_ms(lambda: kernel(tab1, *args), device)
+    library_dev_ms = device_ms(lambda: flat1.index_select(0, idx), device)
 
     # least time for the same work: every input read once, the output
     # written once, against the card's memory rate; the kernel does one
@@ -505,6 +518,7 @@ def phase_k1_vs_plain(csr, T, device) -> dict:
         pad_share=round(1.0 - A / L, 4), layout_build_s=round(build_s, 2),
         bit_equal=True, max_abs_err=max_err,
         ms=ms, ms_b8=ms_b8, plain_ms=plain_ms, library_ms=library_ms,
+        device_ms=dev_ms, library_device_ms=library_dev_ms,
         bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
         bytes=nbytes,
@@ -521,14 +535,26 @@ def flat_index(reference, n: int, device) -> torch.Tensor:
     return reference(iota).reshape(-1).long()
 
 
-def bound(n_bytes: int, n_ops: int) -> dict:
+def bound(n_bytes: int, n_ops: int, moved: Optional[int] = None) -> dict:
     """Least time for the work: every input read once and every output
     written once against the card's memory rate, or the operations against
-    its f32 rate."""
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    its f32 rate.
+
+    `n_bytes` counts a routing's int8 tables, `moved` the same work done
+    through the composed source offsets that the kernels read. The bound
+    takes the fewer bytes of the two, so that no form of the work can beat
+    it; `table_bound_ms` keeps the tables' figure, the one that earlier
+    versions of the kernels were held to."""
+    least = n_bytes if moved is None else min(n_bytes, moved)
+    bytes_ms = least / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / F32_OPS_PER_S * 1e3
-    return dict(bound_ms=max(bytes_ms, ops_ms), bytes=n_bytes, ops=n_ops,
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    out = dict(bound_ms=max(bytes_ms, ops_ms), bytes=least, ops=n_ops,
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    if moved is not None:
+        out.update(moved_bytes=moved, table_bytes=n_bytes,
+                   table_bound_ms=max(n_bytes / HBM_BYTES_PER_S * 1e3,
+                                      ops_ms))
+    return out
 
 
 def device_ms(fn, device, calls: int = 20, attempts: int = 4):
@@ -678,8 +704,8 @@ def phase_k2_k3_k4_vs_plain(csr, R, T, device) -> dict:
                                 device),
             library_device_ms=device_ms(lambda: flat.index_select(0, idx),
                                         device),
-            moved_bytes=nbytes(x, x, t.stage.off),
-            **bound(nbytes(x, x, t.r1, t.r2, t.src, t.lane), 0))
+            **bound(nbytes(x, x, t.r1, t.r2, t.src, t.lane), 0,
+                    moved=nbytes(x, x, t.stage.off)))
     t = data.t_in
     x8 = values(REPLICATES * t.n_tiles * t.rows, L)
     args8 = (x8, t.r1, t.r2, t.src, t.lane, t.rows, t.n_tiles, REPLICATES)
@@ -704,8 +730,8 @@ def phase_k2_k3_k4_vs_plain(csr, R, T, device) -> dict:
             lambda: tp.tile_permute_cuda(x8, t.stage, REPLICATES), device),
         library_device_ms=device_ms(lambda: flat8.index_select(1, idx),
                                     device),
-        moved_bytes=nbytes(x8, x8, t.stage.off),
-        **bound(nbytes(x8, x8, t.r1, t.r2, t.src, t.lane), 0))
+        **bound(nbytes(x8, x8, t.r1, t.r2, t.src, t.lane), 0,
+                moved=nbytes(x8, x8, t.stage.off)))
     res["tile_permute"] = k2
     del x8, flat8
 
@@ -734,9 +760,9 @@ def phase_k2_k3_k4_vs_plain(csr, R, T, device) -> dict:
                             device),
         library_device_ms=device_ms(lambda: flat.index_select(0, idx_expand),
                                     device),
-        moved_bytes=nbytes(x, w_txp, y1, ex.off),
         **bound(nbytes(x, w_txp, y1, pa.s1_r1, pa.s1_src, pa.s1_row,
-                       pa.s1_r2), y1.numel()))
+                       pa.s1_r2), y1.numel(),
+                moved=nbytes(x, w_txp, y1, ex.off)))
     yq = values(pb.n_src * pb.R1, L)
     if strided:
         tag, zq = "reduce_strided", pb.quota_view(yq)
@@ -760,9 +786,8 @@ def phase_k2_k3_k4_vs_plain(csr, R, T, device) -> dict:
         device_ms=device_ms(lambda: rs.route_stage_cuda(zq, red), device),
         library_device_ms=device_ms(lambda: flat.index_select(0, idx_reduce),
                                     device),
-        moved_bytes=nbytes(zq, out3, red.off),
         **bound(nbytes(zq, out3, pb.s3_r1, pb.s3_src, pb.s3_row, pb.s3_r2,
-                       pb.s3_mask), 0))
+                       pb.s3_mask), 0, moved=nbytes(zq, out3, red.off)))
     # the other variants and types at the plan's shapes: f64 (the expand
     # stage through L2, 256 KB a chunk), f32 values that do not start on 16
     # bytes (the expand stage through L2 with int16 offsets), and both
@@ -792,7 +817,10 @@ def phase_k2_k3_k4_vs_plain(csr, R, T, device) -> dict:
     res["route_stage"] = k3
 
     # K4: the fused middle on the expand stage's own output, without and
-    # with bootstrap multiplicities
+    # with bootstrap multiplicities. It reads the source offsets of route
+    # A's reduce stage and route B's expand stage, fewer bytes than the int8
+    # tables (read once) that its bound counted before: `bound_ms` is the
+    # offsets' figure, `table_bound_ms` the tables'
     k4 = {}
     if fused:
         zg = pa.quota_view(y1) if strided else (
@@ -804,9 +832,10 @@ def phase_k2_k3_k4_vs_plain(csr, R, T, device) -> dict:
             device=device).float()
         tables = (pa.s3_r1, pa.s3_src, pa.s3_row, pa.s3_r2, pa.s3_mask,
                   pb.s1_r1, pb.s1_src, pb.s1_row, pb.s1_r2)
-        am = (zg, data.seg_id, *tables, pa.n_dst, pa.R3, CR,
-              EM_DENOM_THRESH, data.max_lvl)
+        st_a, st_b = pa.reduce_stage, pb.expand_stage
+        am = (zg, data.seg_id, st_a, st_b, EM_DENOM_THRESH, data.max_lvl)
         n_c = pa.n_dst * CR * L
+        variant = rm.middle_variant(zg.dtype, CR, data.max_lvl)
         for tag, m in (("point", None),
                        ("replicate", em_v4.mult_slots(data, mult))):
             got = rm.route_middle_cuda(*am, mult=m)
@@ -814,8 +843,10 @@ def phase_k2_k3_k4_vs_plain(csr, R, T, device) -> dict:
                             rm.route_middle_reference(*am, mult=m))
             assert torch.isfinite(got).all()
             k4[tag] = dict(
-                max_abs_err=err,
+                variant=variant, max_abs_err=err,
                 ms=time_ms(lambda: rm.route_middle_cuda(*am, mult=m), device),
+                device_ms=device_ms(
+                    lambda: rm.route_middle_cuda(*am, mult=m), device),
                 plain_ms=time_ms(
                     lambda: rm.route_middle_reference(*am, mult=m),
                     device, 3, 3),
@@ -823,14 +854,26 @@ def phase_k2_k3_k4_vs_plain(csr, R, T, device) -> dict:
                 # an add, a product (two for a replicate) and a share of a
                 # division per chunk element
                 **bound(nbytes(zg, got, data.seg_id, m, *tables),
-                        (3 if m is None else 4) * n_c))
+                        (3 if m is None else 4) * n_c,
+                        moved=nbytes(zg, got, data.seg_id, m, st_a.off,
+                                     st_b.off)))
+        # f64 at the plan's shapes: the chunk does not fit a block's shared
+        # memory and goes through the scratch area in device memory
+        zg64 = zg.double()
+        m64 = em_v4.mult_slots(data, mult).double()
+        k4["point_f64"] = dict(max_abs_err=max(
+            bit_equal(f"route_middle f64{tag}",
+                      rm.route_middle_cuda(zg64, *am[1:], mult=m),
+                      rm.route_middle_reference(zg64, *am[1:], mult=m))
+            for tag, m in (("", None), (" with mult", m64))))
+        del zg64, m64
     res["route_middle"] = k4
 
     # The replicate-axis arms at one bootstrap batch: values (and `mult`)
     # with a leading axis of 8, tables, level table and `mul` shared. Each
     # is held bit for bit against its plain version and against 8 launches
-    # without the axis. Bound: tables once, values 8 times. Library: 8
-    # `index_select`s with the composed index.
+    # without the axis. Bound: offsets (or tables) once, values 8 times.
+    # Library: 8 `index_select`s with the composed index.
     if not (fused and strided):
         raise RuntimeError(
             "the bench plan does not take the fused middle with the strided "
@@ -863,9 +906,9 @@ def phase_k2_k3_k4_vs_plain(csr, R, T, device) -> dict:
             device),
         device_ms=device_ms(lambda: rs.route_stage_cuda(x8, ex, mul=w_txp),
                             device),
-        moved_bytes=nbytes(x8, w_txp, y8, ex.off),
         **bound(nbytes(x8, w_txp, y8, pa.s1_r1, pa.s1_src, pa.s1_row,
-                       pa.s1_r2), y8.numel()))
+                       pa.s1_r2), y8.numel(),
+                moved=nbytes(x8, w_txp, y8, ex.off)))
     yq8 = values(B, pb.n_src * pb.R1, L)
     a3b = (pb.quota_view(yq8), *a3[1:])
     out8 = rs.route_stage_cuda(a3b[0], red)
@@ -881,9 +924,8 @@ def phase_k2_k3_k4_vs_plain(csr, R, T, device) -> dict:
             lambda: [flat8[b].index_select(0, idx_reduce) for b in range(B)],
             device),
         device_ms=device_ms(lambda: rs.route_stage_cuda(a3b[0], red), device),
-        moved_bytes=nbytes(yq8, out8, red.off),
         **bound(nbytes(yq8, out8, pb.s3_r1, pb.s3_src, pb.s3_row, pb.s3_r2,
-                       pb.s3_mask), 0))
+                       pb.s3_mask), 0, moved=nbytes(yq8, out8, red.off)))
     res["route_stage_replicates"] = arm3
     del x8, yq8, out8, flat8
 
@@ -903,13 +945,17 @@ def phase_k2_k3_k4_vs_plain(csr, R, T, device) -> dict:
                 zg8[b], *am[1:], mult=None if m is None else m[b]))
         assert torch.isfinite(got).all()
         arm4[tag] = dict(
-            max_abs_err=err,
+            variant=variant, max_abs_err=err,
             ms=time_ms(lambda: rm.route_middle_cuda(*am8, mult=m), device),
+            device_ms=device_ms(lambda: rm.route_middle_cuda(*am8, mult=m),
+                                device),
             plain_ms=time_ms(
                 lambda: rm.route_middle_reference(*am8, mult=m), device, 2, 2),
             library_ms=None,
             **bound(nbytes(zg8, got, data.seg_id, m, *tables),
-                    (3 if m is None else 4) * n_c * B))
+                    (3 if m is None else 4) * n_c * B,
+                    moved=nbytes(zg8, got, data.seg_id, m, st_a.off,
+                                 st_b.off)))
     res["route_middle_replicates"] = arm4
     emit("k2_k3_k4_vs_plain", plan=plan, bit_equal=True, replicates=B, **res)
     return dict(plan=plan, **res)
@@ -1372,12 +1418,11 @@ def main(argv=None) -> int:
     def also(measured, tag):
         return {f"{k}_{tag}": measured[k]
                 for k in ("ms", "plain_ms", "bound_ms", "library_ms",
-                          "device_ms", "library_device_ms", "variant")
+                          *DEVICE_TIMES)
                 if k in measured}
 
     def device_times(measured):
-        return {k: measured[k] for k in ("device_ms", "library_device_ms",
-                                         "variant") if k in measured}
+        return {k: measured[k] for k in DEVICE_TIMES if k in measured}
 
     k2, k3, k4 = (k234[k] for k in ("tile_permute", "route_stage",
                                     "route_middle"))
@@ -1387,7 +1432,7 @@ def main(argv=None) -> int:
               dict(k1, max_abs_err=max(
                   k1["max_abs_err"],
                   cli["pallas_run"]["k1_plan"]["max_abs_err"])),
-              ms_8_replicates=k1["ms_b8"],
+              **device_times(k1), ms_8_replicates=k1["ms_b8"],
               bound_ms_8_replicates=k1["bound_ms_b8"]),
         entry("tile_permute",
               dict(k2["t_in"], max_abs_err=max(
@@ -1408,6 +1453,7 @@ def main(argv=None) -> int:
             dict(k4["point"], max_abs_err=max(
                 v["max_abs_err"] for v in k4.values())),
             measured_on="point estimate (no mult)",
+            **device_times(k4["point"]),
             **also(k4["replicate"], "replicate")))
     arm3, arm4 = k234["route_stage_replicates"], k234["route_middle_replicates"]
     kernels.append(entry(
@@ -1422,6 +1468,7 @@ def main(argv=None) -> int:
         dict(arm4["point"], max_abs_err=max(
             v["max_abs_err"] for v in arm4.values())),
         replicates=REPLICATES, measured_on="no mult",
+        **device_times(arm4["point"]),
         **also(arm4["replicate"], "replicate")))
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("total", seconds=round(time.time() - t_start, 1))

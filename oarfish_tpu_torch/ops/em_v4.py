@@ -1139,12 +1139,10 @@ def _middle_fused(data: EmV4Data, prev_slots: torch.Tensor,
 
 def _route_middle(data: EmV4Data, zg: torch.Tensor,
                   mult_sl: Optional[torch.Tensor]) -> torch.Tensor:
-    """The fused middle kernel on this layout's tables."""
-    pa, pb = data.p_a, data.p_b
+    """The fused middle kernel on this layout's stages: route A's reduce
+    stage, route B's expand stage."""
     return route_middle(
-        zg, data.seg_id, pa.s3_r1, pa.s3_src, pa.s3_row, pa.s3_r2,
-        pa.s3_mask, pb.s1_r1, pb.s1_src, pb.s1_row, pb.s1_r2,
-        n_chunks=pa.n_dst, R_q=pa.R3, R_c=pa.chunk_rows,
+        zg, data.seg_id, data.p_a.reduce_stage, data.p_b.expand_stage,
         thresh=float(EM_DENOM_THRESH), max_lvl=data.max_lvl, mult=mult_sl,
     )
 

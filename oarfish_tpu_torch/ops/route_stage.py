@@ -138,12 +138,12 @@ def stage_apply_reference(
     axis."""
     n, R_in = tiles.shape[-3], tiles.shape[-2]
     R_out = r2.shape[1]
-    lead = (1,) * (tiles.dim() - 3)
+    lead = tiles.shape[:-3]
 
-    def index(t):  # as many axes as the tiles: the gathers broadcast
-        return t.reshape(*lead, *t.shape)
+    def gather(x, t, dim):  # the tables `[n, ...]` serve every leading axis
+        return torch.gather(x, dim, t.expand(*lead, *t.shape))
 
-    s1 = torch.take_along_dim(tiles, index(r1.long()), dim=-1)
+    s1 = gather(tiles, r1.long(), -1)
     ri = row.long()
     if src is not None and R_in > LANES:
         blk = src.long()
@@ -153,11 +153,11 @@ def stage_apply_reference(
         known = None
     # tables are stored [block of ro][c2][ro % 128]
     ri = ri.permute(0, 1, 3, 2).reshape(n, R_out, LANES)
-    q = torch.take_along_dim(s1, index(ri), dim=-2)
+    q = gather(s1, ri, -2)
     if known is not None:
         q = torch.where(known.permute(0, 1, 3, 2).reshape(n, R_out, LANES),
                         q, torch.zeros_like(q))
-    out = torch.take_along_dim(q, index(r2.long()), dim=-1)
+    out = gather(q, r2.long(), -1)
     if mask is not None:
         out = torch.where(mask != 0, out, torch.zeros_like(out))
     return out

@@ -22,6 +22,7 @@ import pytest
 from oarfish_tpu.cli import main as jax_main
 from oarfish_tpu_torch.cli import main as torch_main
 from util_sim import simulate_bam
+from util_torch import one_torch_thread  # noqa: F401 (autouse fixture)
 
 GOLDEN = Path(__file__).resolve().parent / "golden"
 BASE = ["--em-dtype", "float64", "--em-impl", "segsum", "--quiet"]

@@ -36,6 +36,7 @@ from oarfish_tpu_torch.quant import bulk as tbulk
 from test_coverage_model import build_store
 from test_torch_bulk_e2e import BASE, GOLDEN, RUNS, golden_transcripts
 from util_sim import simulate_bam
+from util_torch import one_torch_thread  # noqa: F401 (autouse fixture)
 
 # seed, transcripts, reads: the JAX package's two cases, then one with
 # transcripts that no read hits (inactive: probability 0)

@@ -20,6 +20,7 @@ from oarfish_tpu_torch.ops import bootstrap as tboot
 from oarfish_tpu_torch.ops import em as tem
 from oarfish_tpu_torch.ops import em_oracle as toracle
 from oarfish_tpu_torch.ops.convert import em_data_from_numpy
+from util_torch import one_torch_thread  # noqa: F401 (autouse fixture)
 
 F64 = torch.float64
 

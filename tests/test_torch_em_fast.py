@@ -26,6 +26,7 @@ from oarfish_tpu_torch.ops import em as tem
 from oarfish_tpu_torch.ops import em_fast as tfast
 from oarfish_tpu_torch.ops.convert import fast_em_data_from_numpy
 from test_torch_em import random_csr
+from util_torch import one_torch_thread  # noqa: F401 (autouse fixture)
 
 F64 = torch.float64
 SHAPES = [(0, 300, 40, 8), (1, 1500, 200, 30), (2, 50, 10, 3)]

@@ -1,34 +1,29 @@
-"""The routed v4 EM of the torch port vs the JAX package's.
+"""The routed v4 EM of the torch port vs the JAX package's: layouts,
+device state and single and batched m-steps. Whole EM runs and the CLI are
+in `test_torch_em_v4_runs.py`, on the same CSRs.
 
-Two CSRs at a size where the routing builds (R = 120,000 reads, T = 2,000
-transcripts): uniform transcript popularity, and zipf-skewed so that some
-transcripts are chunked over several rows (`n_big > 0`). Each is built once
-per module by both packages. The JAX side is reached through
-`EmV4Data.build`, `_m_step_v4` and `make_runner` directly (its Pallas
-kernels run in interpret mode on the CPU); its CLI cannot serve, since on
-a CPU backend it turns `v4` into `fast`.
+Two CSRs at a size where the routing builds with several chunks a side
+(R = 40,000 reads, T = 2,000 transcripts): uniform transcript popularity,
+and zipf-skewed so that some transcripts are chunked over several rows
+(`n_big > 0`). Each is built once per module by both packages. The JAX
+side is reached through `EmV4Data.build`, `_m_step_v4` and `make_runner`
+directly (its Pallas kernels run in interpret mode on the CPU); its CLI
+cannot serve, since on a CPU backend it turns `v4` into `fast`.
 
 Tolerances, all f32:
 
 * layouts, slot maps, route tables, level table, weights: equal.
 * one m-step on the JAX package's tables: rtol 1e-6 (atol 1e-6) for the
-  uniform CSR. The kernels are bit-equal (`test_torch_static_permute.py`);
-  the row sums around them add in torch's order. For the skewed CSR, whose
-  hot transcripts sum ~1e5 terms in two levels, rtol 1e-5 (atol 1e-5).
+  uniform CSR. The kernels are bit-equal (`test_torch_static_permute.py`,
+  `test_torch_route_middle.py`); the row sums around them add in torch's
+  order. For the skewed CSR, whose hot transcripts sum many terms in two
+  levels, rtol 1e-5 (atol 1e-5).
 * the m-step of a batch of replicates (`_m_step_v4_batch`, one call of each
   kernel's plain version for all replicates): against the JAX package's
   `_m_step_v4_batch` (its in-kernel replicate arm, switched on for the
   test) at rtol 1e-6; against the port's own `_m_step_v4` per replicate,
   equal bit for bit on the CPU (torch sums a bucket's rows in the same
   order with and without the leading axis).
-* the whole EM: the same number of iterations, counts at rtol 1e-5 /
-  atol 1e-3 (the JAX package's own bar for batched vs serial runs);
-  against the NumPy f64 oracle L1/R < 2e-3 and total mass within 1e-4.
-  The same bar for the batched SQUAREM run against the JAX package's
-  `run_em_v4_batch_squarem`. On the card (`cuda`) a batched replicate
-  against its serial run: the same iterations, L1/R < 1e-5.
-* `.quant` of `--em-impl v4` (f32) against `--em-impl segsum` (f64)
-  through the port's CLI: L1 per read < 2e-3, mass within 1e-4.
 """
 
 import logging
@@ -40,7 +35,6 @@ import torch
 
 from oarfish_tpu.ops import em_v4 as jv4
 from oarfish_tpu_torch.cli import main as torch_main
-from oarfish_tpu_torch.ops import bootstrap as tboot
 from oarfish_tpu_torch.ops import em_v4 as tv4
 from oarfish_tpu_torch.ops import plan_cache
 from oarfish_tpu_torch.ops import route_middle, route_stage, tile_permute
@@ -49,12 +43,12 @@ from oarfish_tpu_torch.ops.convert import (
     V4_META,
     v4_data_from_jax,
 )
-from oarfish_tpu_torch.ops.em_oracle import do_em_oracle
 from oarfish_tpu_torch.ops.static_permute import ROUTE_TABLES
 from test_em import random_csr
 from test_torch_static_permute import np_or_none, route_fields, tile_fields
+from util_torch import one_torch_thread  # noqa: F401 (autouse fixture)
 
-R, T = 120_000, 2_000
+R, T = 40_000, 2_000
 
 
 def carried(jd):
@@ -68,21 +62,26 @@ def carried(jd):
     )
 
 
+CASES = {"uniform": 12, "skewed": 11}
+
+
+def build_case(name):
+    """One CSR built by both packages, with the JAX package's state carried
+    into the port's."""
+    rng = np.random.default_rng(CASES[name])
+    txp_id, w, boundaries, _, _, _ = random_csr(rng, R=R, T=T, max_k=4)
+    if name == "skewed":
+        txp_id = (rng.zipf(1.3, size=len(txp_id)) % T).astype(np.int32)
+    jd, jorder = jv4.EmV4Data.build(txp_id, w, boundaries, T)
+    td, torder = tv4.EmV4Data.build(txp_id, w, boundaries, T, device="cpu")
+    return dict(rng=rng, csr=(txp_id, w, boundaries), jd=jd,
+                jorder=np.asarray(jorder), td=td, torder=torder,
+                carried=carried(jd))
+
+
 @pytest.fixture(scope="module")
 def cases():
-    out = {}
-    for name, seed in (("uniform", 12), ("skewed", 11)):
-        rng = np.random.default_rng(seed)
-        txp_id, w, boundaries, _, _, _ = random_csr(rng, R=R, T=T, max_k=4)
-        if name == "skewed":
-            txp_id = (rng.zipf(1.3, size=len(txp_id)) % T).astype(np.int32)
-        jd, jorder = jv4.EmV4Data.build(txp_id, w, boundaries, T)
-        td, torder = tv4.EmV4Data.build(txp_id, w, boundaries, T,
-                                        device="cpu")
-        out[name] = dict(rng=rng, csr=(txp_id, w, boundaries), jd=jd,
-                         jorder=np.asarray(jorder), td=td, torder=torder,
-                         carried=carried(jd))
-    return out
+    return {name: build_case(name) for name in CASES}
 
 
 @pytest.mark.parametrize("name", ["uniform", "skewed"])
@@ -213,7 +212,7 @@ def test_both_exchanges_give_the_same_bits(cases):
         assert torch.equal(a, b)
 
 
-BATCH = 6
+BATCH = 3
 
 
 def batch_inputs(c, with_mult, seed=21):
@@ -234,7 +233,7 @@ def ext_space_batch(data, prev_b):
 @pytest.mark.parametrize("name", ["uniform", "skewed"])
 @pytest.mark.parametrize("with_mult", [False, True])
 def test_m_step_batch_matches_jax(cases, name, with_mult, monkeypatch):
-    """Six replicates through one batched m-step of each package; the JAX
+    """Three replicates through one batched m-step of each package; the JAX
     package's in-kernel replicate arm is behind its switch."""
     c = cases[name]
     monkeypatch.setenv("OARFISH_V4_BATCH_KERNELS", "1")
@@ -354,173 +353,6 @@ def test_ineligible_layout_takes_the_loop(cases, layout, monkeypatch, caplog):
                                atol=1e-6)
 
 
-def test_batched_em_matches_jax_batch_runner(cases, monkeypatch):
-    """`run_em_v4` on `[B, T]` against the JAX package's `run_em_v4_batch`
-    with its in-kernel arm: the same iterations per replicate."""
-    c = cases["uniform"]
-    monkeypatch.setenv("OARFISH_V4_BATCH_KERNELS", "1")
-    rng = np.random.default_rng(16)
-    mult = tboot.sample_multiplicities(rng, 3, R)[:, c["torder"]].astype(
-        np.float32)
-    jax_counts, jax_niter = jv4.run_em_v4_batch(
-        c["jd"], jnp.full(T, R / T, dtype=jnp.float32), 56, 5e-3,
-        jnp.asarray(mult))
-    init = torch.full((3, T), R / T, dtype=torch.float32)
-    counts, niter = tv4.run_em_v4(c["td"], init, 56, 5e-3,
-                                  multiplicity=torch.from_numpy(mult))
-    assert niter.tolist() == np.asarray(jax_niter).tolist()
-    np.testing.assert_allclose(counts.numpy(), np.asarray(jax_counts),
-                               rtol=1e-5, atol=1e-3)
-
-
-@pytest.fixture(scope="module")
-def em_runs(cases):
-    c = cases["uniform"]
-    init = torch.full((T,), R / T, dtype=torch.float32)
-    counts, niter = tv4.run_em_v4(c["td"], init, 60, 5e-3)
-    return c, init, counts, int(niter)
-
-
-def test_em_matches_jax_runner(em_runs):
-    c, _, counts, niter = em_runs
-    runner = jv4.make_runner(c["jd"])
-    want, jniter = runner(jnp.full(T, R / T, dtype=jnp.float32), 60, 5e-3)
-    assert niter == int(jniter) and 50 < niter < 60
-    np.testing.assert_allclose(counts.numpy(), np.asarray(want),
-                               rtol=1e-5, atol=1e-3)
-
-
-def test_em_matches_numpy_oracle(em_runs):
-    """15 iterations of both (the f64 oracle is a serial NumPy loop)."""
-    c, init, _, _ = em_runs
-    txp_id, w, boundaries = c["csr"]
-    counts, niter = tv4.run_em_v4(c["td"], init, 15, 5e-3)
-    assert int(niter) == 15
-    want = do_em_oracle(txp_id, w, boundaries, T, max_iter=15,
-                        convergence_thresh=5e-3)
-    got = counts.double().numpy()
-    assert abs(got.sum() - R) / R < 1e-4
-    assert np.abs(got - want).sum() / R < 2e-3
-
-
-def test_second_run_is_bit_identical(em_runs):
-    c, init, counts, niter = em_runs
-    again, n2 = tv4.run_em_v4(c["td"], init, 60, 5e-3)
-    assert int(n2) == niter and torch.equal(again, counts)
-
-
-def test_squarem_reaches_the_same_fixed_point(em_runs):
-    c, init, counts, _ = em_runs
-    sq, n = tv4.run_em_v4_squarem(c["td"], init, 60, 5e-3)
-    assert int(n) <= 60
-    assert abs(float(sq.double().sum()) - R) / R < 1e-4
-    assert float((sq - counts).abs().sum()) / R < 5e-3
-
-
-def test_bootstraps_equal_serial_runs(cases):
-    """`run_replicates` over the batched loop equals one run per
-    replicate, each with its own iteration count."""
-    c = cases["uniform"]
-    data = c["td"]
-    init = torch.full((T,), R / T, dtype=torch.float32)
-    rng = np.random.default_rng(15)
-    mult = tboot.sample_multiplicities(rng, 3, R)[:, c["torder"]]
-    assert mult.shape == (3, data.row_space_r)
-    got, niters = tboot.run_replicates(
-        lambda i, m: tv4.run_em_v4(data, i, 56, 5e-3, multiplicity=m),
-        mult, init, batch=2,
-    )
-    assert got.shape == (3, T)
-    for b in range(3):
-        want, niter = tv4.run_em_v4(
-            data, init, 56, 5e-3,
-            multiplicity=torch.from_numpy(mult[b]).float())
-        assert int(niter) == int(niters[b])
-        np.testing.assert_array_equal(got[b], want.double().numpy())
-        assert abs(got[b].sum() - R) / R < 1e-4
-
-
-@pytest.mark.cuda
-def test_batched_replicates_on_the_card_match_serial_runs(cases):
-    """On the card the kernels give every replicate of a batch the bits of
-    a single launch, but torch's CUDA `sum` splits a reduction by its
-    number of outputs, so the batched glue adds a bucket's rows in another
-    order than a single m-step and a replicate's last bits depend on its
-    batch. Held here: the same iterations as the serial run, and counts
-    within L1 / R < 1e-5 of it (f32, up to 200 iterations), whatever the
-    batch (3 at once, or 2 and 1)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    c = cases["uniform"]
-    txp_id, w, boundaries = c["csr"]
-    data, order = tv4.EmV4Data.build(txp_id, w, boundaries, T, device="cuda")
-    np.testing.assert_array_equal(order, c["torder"])
-    init = torch.full((T,), R / T, dtype=torch.float32, device="cuda")
-    rng = np.random.default_rng(19)
-    mult = tboot.sample_multiplicities(rng, 3, R)[:, order]
-
-    def run(i, m):
-        return tv4.run_em_v4(data, i, 200, 1e-3, multiplicity=m)
-
-    serial = [run(init, torch.from_numpy(mult[b]).float().cuda())
-              for b in range(3)]
-    for batch in (3, 2):
-        got, niters = tboot.run_replicates(run, mult, init, batch=batch)
-        for b, (want, niter) in enumerate(serial):
-            assert int(niters[b]) == int(niter) > 50, (batch, b)
-            l1 = np.abs(got[b] - want.double().cpu().numpy()).sum() / R
-            assert l1 < 1e-5, (batch, b, l1)
-            assert abs(got[b].sum() - R) / R < 1e-4
-
-
-def test_squarem_batch_equals_serial_runs(cases):
-    """`run_em_v4_squarem` on `[B, T]` (the counterpart of
-    `run_em_v4_batch_squarem`) against one accelerated run per replicate:
-    the same iterations; values at rtol 1e-5 (the step length is a ratio of
-    two dot products over T, which a batch sums in another order, and it
-    reaches 64)."""
-    c = cases["uniform"]
-    data = c["td"]
-    rng = np.random.default_rng(17)
-    mult = torch.from_numpy(tboot.sample_multiplicities(rng, 2, R)[
-        :, c["torder"]].astype(np.float32))
-    init = torch.full((2, T), R / T, dtype=torch.float32)
-    got, niters = tv4.run_em_v4_squarem(data, init, 30, 5e-3,
-                                        multiplicity=mult)
-    assert got.shape == (2, T)
-    for b in range(2):
-        want, niter = tv4.run_em_v4_squarem(data, init[b], 30, 5e-3,
-                                            multiplicity=mult[b])
-        assert int(niter) == int(niters[b]) == 30
-        np.testing.assert_allclose(got[b].numpy(), want.numpy(), rtol=1e-5,
-                                   atol=1e-3)
-        assert abs(float(got[b].double().sum()) - R) / R < 1e-4
-
-
-def test_squarem_batch_matches_jax_batch_runner(cases, monkeypatch):
-    """`run_em_v4_squarem` on `[B, T]` against the JAX package's
-    `run_em_v4_batch_squarem` with its in-kernel arm, on the carried
-    tables: the same iterations per replicate, counts at the whole EM's
-    rtol 1e-5 / atol 1e-3."""
-    c = cases["uniform"]
-    monkeypatch.setenv("OARFISH_V4_BATCH_KERNELS", "1")
-    rng = np.random.default_rng(18)
-    mult = tboot.sample_multiplicities(rng, 3, R)[:, c["jorder"]].astype(
-        np.float32)
-    jax_counts, jax_niter = jv4.run_em_v4_batch_squarem(
-        c["jd"], jnp.full(T, R / T, dtype=jnp.float32), 30, 5e-3,
-        jnp.asarray(mult))
-    init = torch.full((3, T), R / T, dtype=torch.float32)
-    counts, niter = tv4.run_em_v4_squarem(
-        c["carried"], init, 30, 5e-3, multiplicity=torch.from_numpy(mult))
-    assert niter.tolist() == np.asarray(jax_niter).tolist()
-    got = counts.numpy()
-    assert got.shape == (3, T)
-    np.testing.assert_allclose(got, np.asarray(jax_counts)[:, :T],
-                               rtol=1e-5, atol=1e-3)
-    assert (np.abs(got.astype(np.float64).sum(axis=1) - R) / R < 1e-4).all()
-
-
 def test_plan_cache_round_trip(cases, tmp_path, monkeypatch, caplog):
     c = cases["uniform"]
     txp_id, w, boundaries = c["csr"]
@@ -590,33 +422,3 @@ def read_counts(path):
         return np.array([float(ln.split("\t")[2]) for ln in fh.readlines()[1:]])
 
 
-def test_cli_v4_matches_segsum(tmp_path, caplog):
-    """A BAM of the same size through the port's CLI on the CPU."""
-    from chip_smoke import build_e2e_bam
-
-    bam = tmp_path / "v4.bam"
-    build_e2e_bam(bam, R, T, seed=3, threads=2)
-    base = ["--alignments", str(bam), "--device", "cpu", "--num-bootstraps",
-            "2", "--seed", "1"]
-    with caplog.at_level(logging.INFO, logger="oarfish_tpu_torch"):
-        assert torch_main(base + ["--em-impl", "v4", "-o",
-                                  str(tmp_path / "v4")]) == 0
-    assert "v4 EM on cpu (float32)" in caplog.text
-    assert "--em-impl v4 runs in float32" in caplog.text
-    assert torch_main(base + ["--em-impl", "segsum", "--quiet", "-o",
-                              str(tmp_path / "seg")]) == 0
-    got = read_counts(str(tmp_path / "v4") + ".quant")
-    want = read_counts(str(tmp_path / "seg") + ".quant")
-    kept = want.sum()
-    assert got.shape == (T,) and kept > 0.9 * R
-    assert abs(got.sum() - kept) / kept < 1e-4
-    assert np.abs(got - want).sum() / kept < 2e-3
-    import pyarrow.parquet as pq
-
-    reps = [pq.read_table(str(tmp_path / tag) + ".infreps.pq")
-            for tag in ("v4", "seg")]
-    a, b = (np.stack([np.asarray(t[c]) for c in t.column_names])
-            for t in reps)
-    assert a.shape == b.shape == (2, T)
-    # the same draw reaches the same reads through the layout's row order
-    assert np.abs(a - b).sum(axis=1).max() / kept < 2e-3

@@ -24,6 +24,7 @@ import oarfish_tpu_torch
 from oarfish_tpu_torch import device as tdevice
 from oarfish_tpu_torch.cli import main as torch_main
 from oarfish_tpu_torch.quant import bulk as tbulk
+from util_torch import one_torch_thread  # noqa: F401 (autouse fixture)
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "oarfish_tpu_torch"

@@ -21,6 +21,7 @@ import torch
 from oarfish_tpu.ops import gather_pallas as jg
 from oarfish_tpu_torch.ops import sorted_gather as tg
 from oarfish_tpu_torch.ops.convert import gather_plan_from_numpy
+from util_torch import one_torch_thread  # noqa: F401 (autouse fixture)
 
 CASES = [
     # seed, table_size, n_idx

@@ -1,17 +1,18 @@
-"""Tile permute, route stage and fused middle of the torch port vs the
-Pallas kernels of the JAX package.
+"""Tile permute and route stage of the torch port vs the Pallas kernels
+of the JAX package.
 
 The same seeded NumPy inputs and the same int8 tables (built by the JAX
 package and carried across by `ops/convert.py`) go through
-`static_permute._run_batch`, `_run_route_stage` and `_run_middle_stage`
-(Pallas interpret mode on the CPU) and through the port's plain versions,
-which are what the port runs for CPU tensors and what the CUDA kernels are
-held against on the card.
+`static_permute._run_batch` and `_run_route_stage` (Pallas interpret mode
+on the CPU) and through the port's plain versions, which are what the port
+runs for CPU tensors and what the CUDA kernels are held against on the
+card. The fused middle has its own file, `test_torch_route_middle.py`;
+here it meets only a quota of half a lane tile.
 
 The replicate axis (`B > 0` in the JAX kernels, a leading axis here) goes
-through `_run_route_stage(..., B=B)` / `_run_middle_stage(..., B=B)` and the
-port's plain versions with B in {1, 3}, and each replicate must also equal
-what a call without the axis gives.
+through `_run_route_stage(..., B=B)` and the port's plain versions with B
+in {1, 3}, and each replicate must also equal what a call without the axis
+gives.
 
 The source offsets that the port's plans compose from the tables (what the
 CUDA kernels of K2 and K3 read) are held to the same outputs through a
@@ -20,9 +21,8 @@ arithmetic: -1 gives 0, the quota view's rows split by the multiply-high of
 `route_stage.q_inverse`.
 
 Tolerance: none. K2 and K3 move f32 values (K3 with one product per
-element when `mul` is given); K4 adds the rows of a group in the order of
-the JAX kernel's butterfly and divides once. All outputs must be equal bit
-for bit, uncovered quota slots included.
+element when `mul` is given). All outputs must be equal bit for bit,
+uncovered quota slots included.
 """
 
 import jax.numpy as jnp
@@ -41,6 +41,7 @@ from oarfish_tpu_torch.ops.convert import (
     route_plan_from_numpy,
     tile_permute_from_numpy,
 )
+from util_torch import one_torch_thread  # noqa: F401 (autouse fixture)
 
 LANES = 128
 
@@ -101,6 +102,27 @@ def random_route(seed, n_chunks, chunk_rows, cover=0.8):
     out_idx = np.sort(rng.choice(n, size=n_data, replace=False))
     in_idx = rng.permutation(n)[:n_data]
     return rng, n, out_idx, in_idx
+
+
+def level_table(rng, n_chunks, cr, max_lvl):
+    """[n_chunks * cr, 128] i8 as `em_v4._read_lvl_ids` lays it out: runs
+    of aligned groups of 2^L rows, every L in 0..max_lvl present in every
+    chunk, -1 rows between them."""
+    lvl = np.full(n_chunks * cr, -1, dtype=np.int8)
+    for c in range(n_chunks):
+        r = 0
+        # largest first, so that every mandatory group is aligned
+        todo = [-1] + list(range(max_lvl + 1))
+        while r < cr:
+            L = todo.pop() if todo else int(rng.integers(-1, max_lvl + 1))
+            K = 1 << max(L, 0)
+            r = -(-r // K) * K  # align
+            if r + K > cr:
+                break
+            lvl[c * cr + r: c * cr + r + K] = L
+            r += K
+    return np.ascontiguousarray(np.broadcast_to(lvl[:, None],
+                                                (n_chunks * cr, LANES)))
 
 
 # ---------------------------------------------------------------------------
@@ -431,159 +453,9 @@ def test_pair_build_equals_two_single_builds():
 
 
 # ---------------------------------------------------------------------------
-# K4: fused middle
+# K4: the fused middle is held in test_torch_route_middle.py; here only
+# where a route takes a quota of half a lane tile
 # ---------------------------------------------------------------------------
-
-def level_table(rng, n_chunks, cr, max_lvl):
-    """[n_chunks * cr, 128] i8 as `em_v4._read_lvl_ids` lays it out: runs
-    of aligned groups of 2^L rows, every L in 0..max_lvl present in every
-    chunk, -1 rows between them."""
-    lvl = np.full(n_chunks * cr, -1, dtype=np.int8)
-    for c in range(n_chunks):
-        r = 0
-        # largest first, so that every mandatory group is aligned
-        todo = [-1] + list(range(max_lvl + 1))
-        while r < cr:
-            L = todo.pop() if todo else int(rng.integers(-1, max_lvl + 1))
-            K = 1 << max(L, 0)
-            r = -(-r // K) * K  # align
-            if r + K > cr:
-                break
-            lvl[c * cr + r: c * cr + r + K] = L
-            r += K
-    return np.ascontiguousarray(np.broadcast_to(lvl[:, None],
-                                                (n_chunks * cr, LANES)))
-
-
-MIDDLES = [(31, 16, 128, 5), (32, 12, 256, 7), (33, 4, 512, 3)]
-
-
-@pytest.fixture(scope="module")
-def middles():
-    out = {}
-    for seed, n_chunks, cr, max_lvl in MIDDLES:
-        rng, n, out_idx, in_idx = random_route(seed, n_chunks, cr)
-        ja, jb = jsp.build_route_pair(out_idx, in_idx, n, chunk_rows=cr)
-        lvl = level_table(rng, ja.n_dst, cr, max_lvl)
-        for L in range(-1, max_lvl + 1):
-            assert (lvl == L).any(), L
-        out[cr] = (rng, ja, jb, route_to_port(ja), route_to_port(jb), lvl,
-                   max_lvl)
-    return out
-
-
-def middle_args(pa, pb, conv):
-    return [conv(t) for t in (pa.s3_r1, pa.s3_src, pa.s3_row, pa.s3_r2,
-                              pa.s3_mask, pb.s1_r1, pb.s1_src, pb.s1_row,
-                              pb.s1_r2)]
-
-
-@pytest.mark.parametrize("cr", [m[2] for m in MIDDLES])
-@pytest.mark.parametrize("strided", [False, True])
-@pytest.mark.parametrize("with_mult", [False, True])
-def test_middle_bit_equal_to_pallas(middles, cr, strided, with_mult):
-    rng, ja, jb, ta, tb, lvl, max_lvl = middles[cr]
-    n_q, n_c = ta.n_dst * ta.R3, ta.n_dst * cr
-    # positive and negative values, some of them tiny, and exact zeros so
-    # that the denominator threshold is met from both sides
-    y = rng.normal(size=(n_q, LANES)).astype(np.float32)
-    y[rng.random(y.shape) < 0.05] = 0.0
-    y[rng.random(y.shape) < 0.02] *= 1e-32
-    mult = (rng.integers(0, 4, size=(n_c, LANES)).astype(np.float32)
-            if with_mult else None)
-    qr = ta.Q // LANES if strided else 0
-    yj = jnp.asarray(y)
-    want = np.asarray(jsp._run_middle_stage(
-        yj.reshape(ta.n_src, ta.n_dst, qr, LANES) if strided else yj,
-        jnp.asarray(lvl), *middle_args(ja, jb, lambda t: t),
-        n_chunks=ja.n_dst, R_q=ja.R3, R_c=cr, thresh=float(EM_DENOM_THRESH),
-        max_lvl=max_lvl, mult=None if mult is None else jnp.asarray(mult),
-        strided_qr=qr))
-    yt = torch.from_numpy(y)
-    got = rm.route_middle(
-        ta.quota_view(yt) if strided else yt, torch.from_numpy(lvl),
-        *middle_args(ta, tb, lambda t: t), n_chunks=ta.n_dst, R_q=ta.R3,
-        R_c=cr, thresh=float(EM_DENOM_THRESH), max_lvl=max_lvl,
-        mult=None if mult is None else torch.from_numpy(mult))
-    assert got.shape == (n_q, LANES) and got.dtype == torch.float32
-    assert np.isfinite(got.numpy()).all()
-    assert bits(got.numpy()) == bits(want)
-
-
-@pytest.mark.parametrize("B", REPLICATES)
-@pytest.mark.parametrize("cr", [m[2] for m in MIDDLES])
-@pytest.mark.parametrize("strided", [False, True])
-@pytest.mark.parametrize("with_mult", [False, True])
-def test_middle_replicates_bit_equal_to_pallas(middles, cr, strided,
-                                               with_mult, B):
-    """Values, `mult` and output with a leading replicate axis; tables and
-    `lvl` shared. Values as in `test_middle_bit_equal_to_pallas`: both
-    signs, exact zeros, and tiny ones that meet the denominator threshold
-    from both sides."""
-    rng, ja, jb, ta, tb, lvl, max_lvl = middles[cr]
-    n_q, n_c = ta.n_dst * ta.R3, ta.n_dst * cr
-    y = rng.normal(size=(B, n_q, LANES)).astype(np.float32)
-    y[rng.random(y.shape) < 0.05] = 0.0
-    # tiny values of either sign, none so small that a scaled one would be
-    # subnormal: XLA's CPU backend flushes subnormals to zero, torch does not
-    tiny = rng.random(y.shape) < 0.02
-    y[tiny] = np.copysign(
-        1e-32 * rng.uniform(0.5, 2.0, size=int(tiny.sum())), y[tiny])
-    mult = (rng.integers(0, 4, size=(B, n_c, LANES)).astype(np.float32)
-            if with_mult else None)
-    qr = ta.Q // LANES if strided else 0
-    yj = jnp.asarray(y)
-    kw = dict(n_chunks=ja.n_dst, R_q=ja.R3, R_c=cr,
-              thresh=float(EM_DENOM_THRESH), max_lvl=max_lvl)
-    want = np.asarray(jsp._run_middle_stage(
-        yj.reshape(B, ta.n_src, ta.n_dst, qr, LANES) if strided else yj,
-        jnp.asarray(lvl), *middle_args(ja, jb, lambda t: t),
-        mult=None if mult is None else jnp.asarray(mult), strided_qr=qr, B=B,
-        **kw))
-    yt = torch.from_numpy(y)
-    tmult = None if mult is None else torch.from_numpy(mult)
-    args = middle_args(ta, tb, lambda t: t)
-    tl = torch.from_numpy(lvl)
-    got = rm.route_middle(ta.quota_view(yt) if strided else yt, tl, *args,
-                          mult=tmult, **kw)
-    assert got.shape == (B, n_q, LANES) and got.dtype == torch.float32
-    assert bits(got.numpy()) == bits(want)
-    for b in range(B):
-        one = rm.route_middle(
-            ta.quota_view(yt[b]) if strided else yt[b], tl, *args,
-            mult=None if tmult is None else tmult[b], **kw)
-        assert torch.equal(got[b], one)
-
-
-def test_middle_denominators_are_group_sums(middles):
-    """What the butterfly computes, said directly: every row of an aligned
-    group of 2^L rows is divided by the group's sum at its lane; rows with
-    level -1 and groups whose sum is not above the threshold give 0."""
-    rng, _, _, ta, tb, lvl, max_lvl = middles[256]
-    cr, n = 256, ta.n_dst
-    y = rng.uniform(0.5, 2.0, size=(n * ta.R3, LANES)).astype(np.float32)
-    args = middle_args(ta, tb, lambda t: t)
-    x = rs.stage_apply_reference(
-        torch.from_numpy(y).reshape(n, ta.R3, LANES), *args[:5]).numpy()
-    xs = np.zeros_like(x, dtype=np.float64)
-    for c in range(n):
-        r = 0
-        while r < cr:
-            L = int(lvl[c * cr + r, 0])
-            K = 1 << max(L, 0)
-            if L >= 0:
-                d = x[c, r:r + K].astype(np.float64).sum(axis=0)
-                ok = d > EM_DENOM_THRESH
-                xs[c, r:r + K] = np.where(ok, x[c, r:r + K] / np.where(ok, d, 1), 0)
-            r += K
-    want = rs.stage_apply_reference(
-        torch.from_numpy(xs.astype(np.float32)), *args[5:], None)
-    got = rm.route_middle(
-        torch.from_numpy(y), torch.from_numpy(lvl), *args, n_chunks=n,
-        R_q=ta.R3, R_c=cr, thresh=float(EM_DENOM_THRESH), max_lvl=max_lvl)
-    np.testing.assert_allclose(
-        got.numpy(), want.reshape(-1, LANES).numpy(), rtol=1e-5, atol=1e-7)
-
 
 def test_quota_of_half_a_lane_tile():
     """256 chunks with thin flows settle on Q = 64: the quota is no whole
@@ -604,13 +476,15 @@ def test_quota_of_half_a_lane_tile():
     np.testing.assert_array_equal(np.asarray(ja.reduce(zg_j)), want)
     with pytest.raises(ValueError, match="Q % 128"):
         ta.reduce_strided(zg_t)
+
     lvl = level_table(rng, ja.n_dst, 128, 4)
-    kw = dict(n_chunks=ja.n_dst, R_q=ja.R3, R_c=128,
-              thresh=float(EM_DENOM_THRESH), max_lvl=4)
     want_m = np.asarray(jsp._run_middle_stage(
-        zg_j, jnp.asarray(lvl), *middle_args(ja, jb, lambda t: t), **kw))
-    got_m = rm.route_middle(zg_t, torch.from_numpy(lvl),
-                            *middle_args(ta, tb, lambda t: t), **kw)
+        zg_j, jnp.asarray(lvl), ja.s3_r1, ja.s3_src, ja.s3_row, ja.s3_r2,
+        ja.s3_mask, jb.s1_r1, jb.s1_src, jb.s1_row, jb.s1_r2,
+        n_chunks=ja.n_dst, R_q=ja.R3, R_c=128,
+        thresh=float(EM_DENOM_THRESH), max_lvl=4))
+    got_m = rm.route_middle(zg_t, torch.from_numpy(lvl), ta.reduce_stage,
+                            tb.expand_stage, float(EM_DENOM_THRESH), 4)
     assert bits(got_m.numpy()) == bits(want_m)
 
 
@@ -628,8 +502,8 @@ def test_cuda_wrappers_refuse_cpu_tensors(routes):
     with pytest.raises(ValueError, match="CUDA"):
         tp.tile_permute_cuda(x[:128], tiles.stage)
     with pytest.raises(ValueError, match="CUDA"):
-        rm.route_middle_cuda(x, *[None] * 10, n_chunks=1, R_q=128, R_c=128,
-                             thresh=0.0, max_lvl=0)
+        rm.route_middle_cuda(x, None, tpn.reduce_stage, tpn.expand_stage,
+                             0.0, 0)
 
 
 def test_strided_exchange_needs_whole_lane_tiles(routes):
@@ -694,38 +568,6 @@ def plan_on_cpu(plan):
     return dataclasses.replace(plan, **{
         k: None if getattr(plan, k) is None else getattr(plan, k).cpu()
         for k in tsp.ROUTE_TABLES})
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("cr,dtype", [(128, torch.float32),
-                                      (256, torch.float32),
-                                      (512, torch.float32),
-                                      (256, torch.float64)])
-def test_middle_kernel_bit_equal_to_plain_on_card(cr, dtype):
-    """Chunks of 128 and 256 rows sit in shared memory in f32; 512 rows,
-    and 256 in f64, go through the scratch area in device memory."""
-    _skip_without_card()
-    rng, n, out_idx, in_idx = random_route(42, 8, cr)
-    fa, fb = tsp.build_route_pair(out_idx, in_idx, n, chunk_rows=cr,
-                                  device="cuda")
-    max_lvl = 6
-    lvl = torch.from_numpy(level_table(rng, fa.n_dst, cr, max_lvl)).cuda()
-    y = torch.from_numpy(
-        rng.normal(size=(fa.n_dst * fa.R3, LANES))).to(dtype).cuda()
-    mult = torch.from_numpy(rng.integers(
-        0, 4, size=(fa.n_dst * cr, LANES)).astype(np.float64)).to(dtype).cuda()
-    args = middle_args(fa, fb, lambda t: t)
-    kw = dict(n_chunks=fa.n_dst, R_q=fa.R3, R_c=cr,
-              thresh=float(EM_DENOM_THRESH), max_lvl=max_lvl)
-    before = rm.launch_count
-    for m in (None, mult):
-        for values in (y, fa.quota_view(y)):
-            got = rm.route_middle(values, lvl, *args, mult=m, **kw)
-            torch.cuda.synchronize()
-            assert torch.equal(
-                got, rm.route_middle_reference(values, lvl, *args, mult=m,
-                                               **kw))
-    assert rm.launch_count == before + 4
 
 
 @pytest.mark.cuda
@@ -861,48 +703,6 @@ def test_tile_permute_offsets_on_card(rows, n_tiles, dtype, B):
         n_tiles, replicates=B))
     for b in range(B):
         assert torch.equal(got[b], plan(x[b]))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("cr,dtype", [(128, torch.float32),
-                                      (256, torch.float32),
-                                      (512, torch.float32),
-                                      (256, torch.float64)])
-def test_middle_replicate_arm_on_card(cr, dtype):
-    """One launch for B = 3 replicates, the chunk in shared memory (128 and
-    256 rows in f32) and in the scratch area in device memory (512 rows,
-    and 256 in f64): bit-equal to the plain version and to 3 launches
-    without the axis, with and without `mult`, on both value layouts."""
-    _skip_without_card()
-    B = 3
-    rng, n, out_idx, in_idx = random_route(45, 8, cr)
-    fa, fb = tsp.build_route_pair(out_idx, in_idx, n, chunk_rows=cr,
-                                  device="cuda")
-    max_lvl = 6
-    lvl = torch.from_numpy(level_table(rng, fa.n_dst, cr, max_lvl)).cuda()
-    y = torch.from_numpy(
-        rng.normal(size=(B, fa.n_dst * fa.R3, LANES))).to(dtype).cuda()
-    mult = torch.from_numpy(rng.integers(
-        0, 4, size=(B, fa.n_dst * cr, LANES)).astype(np.float64)
-    ).to(dtype).cuda()
-    args = middle_args(fa, fb, lambda t: t)
-    kw = dict(n_chunks=fa.n_dst, R_q=fa.R3, R_c=cr,
-              thresh=float(EM_DENOM_THRESH), max_lvl=max_lvl)
-    before = rm.launch_count
-    for m in (None, mult):
-        for values in (y, fa.quota_view(y)):
-            got = rm.route_middle(values, lvl, *args, mult=m, **kw)
-            torch.cuda.synchronize()
-            assert got.shape == (B, fa.n_dst * fa.R3, LANES)
-            assert torch.equal(got, rm.route_middle_reference(
-                values, lvl, *args, mult=m, **kw))
-    assert rm.launch_count == before + 4
-    for b in range(B):
-        one = rm.route_middle(fa.quota_view(y[b]), lvl, *args,
-                              mult=mult[b], **kw)
-        assert torch.equal(got[b], one)
-    with pytest.raises(ValueError, match="mult"):
-        rm.route_middle(y, lvl, *args, mult=mult[0], **kw)
 
 
 def test_native_library_loads_once_under_threads(monkeypatch):
