@@ -5,13 +5,14 @@
 
 needs one CUDA device and fails without it. It builds every hand-written
 kernel from the sources in this checkout, holds each against its plain
-PyTorch version on the card, and drives the port's main path (bulk
-quantification of a transcriptome BAM) at full width through the entry
-points a user calls. One JSON object per phase goes to standard output:
+PyTorch version on the card, and drives the port's main paths (bulk
+quantification of a transcriptome BAM; single-cell quantification of a
+CB-collated BAM) at full width through the entry points a user calls. One
+JSON object per phase goes to standard output:
 
   env            card name and power limit, torch/CUDA versions, which
                  host helpers were built natively (all of them must be)
-  kernels        the four kernel sources built (one nvcc each, all started
+  kernels        the five kernel sources built (one nvcc each, all started
                  together), with build seconds
   k1_vs_plain    sorted-gather kernel vs its plain version on the bench
                  CSR (R=2,000,000 reads, T=200,000 transcripts, A~6M
@@ -36,14 +37,18 @@ points a user calls. One JSON object per phase goes to standard output:
                  replicate-axis arms of the route stage and the fused
                  middle at 8 replicates: each bit-equal to its plain
                  version and to 8 launches without the axis, with the same
-                 times and bounds (offsets once, values 8 times)
+                 times and bounds (offsets once, values 8 times). Then the
+                 fixed-order row sums of the glue on the plan's tables
+                 (transcript layout, big transcripts, read layout), f32
+                 and f64, alone and at 8 replicates, bit-equal to their
+                 plain version, timed against the torch sums they replaced
   em_full_width  the same CSR as an AlignmentStore through
                  `perform_inference_and_write_output` on the card, f32:
                  `--em-impl v4` with 8 bootstrap replicates (one batched
-                 program: replicate 0 is held against a serial run with
-                 the same multiplicities), a second v4 run (bit-identical,
-                 its plan out of the plan cache), `--em-impl pallas` with 8
-                 replicates, `--em-impl segsum`
+                 program: replicate 0 is held bit for bit against a serial
+                 run with the same multiplicities), a second v4 run
+                 (bit-identical, its plan out of the plan cache),
+                 `--em-impl pallas` with 8 replicates, `--em-impl segsum`
   cli_e2e        a collated BAM of the same scale through the CLI with
                  its defaults (cuda, auto -> v4), coverage model and
                  assignment probabilities on; then a smaller BAM through
@@ -52,6 +57,18 @@ points a user calls. One JSON object per phase goes to standard output:
   covmodel_device_vs_host  the first CLI run's BAM packed again: the device
                  coverage model against the native host pass on that store
                  (rtol 1e-12), with both times
+  single_cell    a CB-collated BAM at `scripts/sc_e2e_bench.py`'s scale
+                 (100,000 cells x 50 reads, T=30,000, ~2 alignments a
+                 read) through the CLI with `--single-cell` on the card
+                 (auto -> dense), then with OARFISH_SC_IMPL=segsum: wall
+                 time, the sc.parse / sc.em / sc.write phases, cells/s,
+                 buckets with their cells and sub-batches, peak device
+                 memory; the matrix's mass within 1e-5 of the reads kept,
+                 dense against segsum L1/R < 1e-6; two control runs of
+                 dense, with TF32 allowed (L1/R printed) and with `prev`
+                 rounded to bf16 each m-step (must exceed the limit); the
+                 device time of one dense m-step at the most populous
+                 bucket's shape
   em_breakdown   only with --breakdown: the `pallas` and the `v4` m-step
                  alone and the batched v4 m-step of 8 replicates, and the
                  loop with and without the host's per-iteration read of the
@@ -64,11 +81,13 @@ points a user calls. One JSON object per phase goes to standard output:
 Each phase that drives the main path sets every kernel's launch count to 0
 just before and reads the counts just after, and each count must be exact:
 per m-step one sorted gather (`pallas`), or two tile permutes, two route
-stages and one fused middle (`v4`; four route stages and no middle for a
-layout without a level table), with one m-step per iteration plus the
-final one, per run and per batch of bootstrap replicates: a batch runs to
-its slowest replicate's count, all replicates in the same launches, which
-are counted a second time as launches of the replicate-axis arms.
+stages, one fused middle and one row sum, two with big transcripts (`v4`;
+four route stages, no middle and a row sum more for a layout without a
+level table), with one m-step per iteration plus the final one, per run
+and per batch of bootstrap replicates: a batch runs to its slowest
+replicate's count, all replicates in the same launches, which are counted
+a second time as launches of the replicate-axis arms. The single-cell
+runs launch none of these kernels, and that is checked too.
 """
 
 from __future__ import annotations
@@ -105,13 +124,15 @@ from oarfish_tpu_torch.host.store import (
 from oarfish_tpu_torch.kernels import build as kernel_build
 from oarfish_tpu_torch.models import coverage as covmodel_host
 from oarfish_tpu_torch.models import coverage_torch as covmodel_device
-from oarfish_tpu_torch.ops import balance, em_v4, permute_plan
+from oarfish_tpu_torch.ops import balance, em_dense, em_v4, permute_plan
 from oarfish_tpu_torch.ops import route_middle as rm
 from oarfish_tpu_torch.ops import route_stage as rs
+from oarfish_tpu_torch.ops import row_sums as rsm
 from oarfish_tpu_torch.ops import sorted_gather as sg
 from oarfish_tpu_torch.ops import tile_permute as tp
 from oarfish_tpu_torch.ops.bootstrap import BOOT_BATCH, sample_multiplicities
 from oarfish_tpu_torch.ops.em import uniform_init
+from oarfish_tpu_torch.ops.em_dense import DenseCellEm, _m_step_dense
 from oarfish_tpu_torch.ops.em_fast import FastEmData
 from oarfish_tpu_torch.ops.static_permute import GlobalRoute
 from oarfish_tpu_torch.quant.bulk import perform_inference_and_write_output
@@ -123,6 +144,13 @@ F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 MEAN_K = 3
 FULL_READS, FULL_TXPS = 2_000_000, 200_000  # the bench shape
 SMALL_READS = 500_000  # the second CLI run (`--em-impl pallas`)
+# the single-cell phase: `scripts/sc_e2e_bench.py`'s defaults
+SC_CELLS, SC_READS_PER_CELL, SC_TXPS = 100_000, 50, 30_000
+# dense against segsum on the card, both f32: the two formulations add in
+# other orders and read 2.4e-8 on this BAM; the limit sits between that
+# and a dense run with `prev` rounded to bf16 (a control run of the phase)
+SC_DENSE_VS_SEGSUM = 1e-6
+BCLEN = 16  # barcode length
 EM_DENOM_THRESH = 1e-30
 
 # name -> (wrapper module, its launch counter, CUDA source, the Pallas call
@@ -143,6 +171,8 @@ KERNELS = {
     "route_middle_replicates": (rm, "replicate_launch_count",
                                 "route_middle.cu",
                                 "ops/static_permute.py:782"),
+    # not a Pallas kernel: the glue's row sums (XLA reductions there)
+    "row_sums": (rsm, "launch_count", "row_sums.cu", "ops/em_v4.py:1672"),
 }
 ARMS = ("route_stage_replicates", "route_middle_replicates")
 # what the kernels line carries beside each kernel's event time
@@ -162,14 +192,19 @@ def launch_counts() -> dict:
             for name, (module, counter, _, _) in KERNELS.items()}
 
 
-def v4_launches(m_steps: int, fused: bool, batched_steps: int = 0) -> dict:
+def v4_launches(m_steps: int, fused: bool, big: bool,
+                batched_steps: int = 0) -> dict:
     """Launches of `m_steps` routed m-steps, `batched_steps` of them those
-    of a batch of replicates on a layout that runs it as one program."""
+    of a batch of replicates on a layout that runs it as one program. The
+    row sums: the transcript layout's, the big transcripts' second level
+    where the layout has big transcripts, the read layout's where the
+    middle is not fused."""
     return {"sorted_gather": 0, "tile_permute": 2 * m_steps,
             "route_stage": (2 if fused else 4) * m_steps,
             "route_middle": m_steps if fused else 0,
             "route_stage_replicates": 2 * batched_steps,
-            "route_middle_replicates": batched_steps}
+            "route_middle_replicates": batched_steps,
+            "row_sums": (1 + int(big) + int(not fused)) * m_steps}
 
 
 def emit(phase: str, **fields) -> None:
@@ -322,6 +357,114 @@ def build_e2e_bam(path, R, T, seed=0, mean_k=MEAN_K, chunk_reads=100_000,
     return total_alns
 
 
+def build_sc_bam(path, C, reads_per_cell, T, seed=0, mean_k=2,
+                 chunk_reads=100_000, threads=8):
+    """CB-collated synthetic BAM: C cells x ~reads_per_cell reads,
+    ~mean_k same-span alignments per read, zipf transcript popularity,
+    16-base barcodes derived from the cell index. Reads are emitted in
+    cell order, so the file is CB-collated as single-cell mode requires
+    (`alignment_parser.rs:170-299` semantics). Returns the number of
+    alignment records."""
+    rng = np.random.default_rng(seed)
+    R = C * reads_per_cell
+    t_len = rng.integers(400, 4000, size=T).astype(np.int64)
+    text = "@HD\tVN:1.6\tSO:unsorted\n@PG\tID:minimap2\tPN:minimap2\n"
+    hdr = bytearray()
+    hdr += b"BAM\x01"
+    tb = text.encode()
+    hdr += struct.pack("<i", len(tb)) + tb
+    hdr += struct.pack("<i", T)
+    for i in range(T):
+        nb = (b"t%06d" % i) + b"\x00"
+        hdr += struct.pack("<i", len(nb)) + nb
+        hdr += struct.pack("<i", int(t_len[i]))
+
+    n_pool = 8 << 20
+    pool_bytes = (
+        rng.integers(0, 4, size=n_pool) * 16
+        + rng.integers(0, 4, size=n_pool)
+    ).astype(np.uint8)
+    filler = None
+
+    NAME_LEN = 11
+    CIG = 12
+    FIXED = 4 + 32 + NAME_LEN + CIG
+    TAGS = 7 + 3 + BCLEN + 1  # AS:i:<i32> + CB:Z:<16>NUL
+    CB_OFF = 7  # CB tag starts after AS
+
+    base_lut = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+    total_alns = 0
+    with open(path, "wb") as fh, ThreadPoolExecutor(threads) as tpool:
+        harr = np.frombuffer(bytes(hdr), dtype=np.uint8)
+        _compress_payload(fh, harr, tpool)
+        for lo in range(0, R, chunk_reads):
+            hi = min(lo + chunk_reads, R)
+            n_r = hi - lo
+            sizes = rng.geometric(1.0 / mean_k, size=n_r).clip(1, 20)
+            A = int(sizes.sum())
+            total_alns += A
+            read_idx = np.repeat(np.arange(lo, hi, dtype=np.int64), sizes)
+            cell_idx = read_idx // reads_per_cell
+            first = np.ones(A, dtype=bool)
+            first[1:] = read_idx[1:] != read_idx[:-1]
+            tid = (rng.zipf(1.3, size=A) % T).astype(np.int64)
+            span_r = rng.integers(200, 380, size=n_r)
+            span = np.repeat(span_r, sizes)
+            tl = t_len[tid]
+            pos = (rng.random(A) * np.maximum(tl - span, 1)).astype(
+                np.int64
+            )
+            score = span - rng.integers(0, 10, size=A)
+            l_seq = np.where(first, span + 21, 0).astype(np.int64)
+            seq_bytes = (l_seq + 1) // 2 + l_seq
+            rec_len = FIXED + seq_bytes + TAGS
+            offs = np.zeros(A + 1, dtype=np.int64)
+            np.cumsum(rec_len, out=offs[1:])
+            need = int(offs[-1])
+            if filler is None or len(filler) < need:
+                filler = np.tile(pool_bytes, need // n_pool + 1)
+            buf = filler[:need]
+            o = offs[:-1]
+            _put_i32(buf, o, rec_len - 4)
+            _put_i32(buf, o + 4, tid)
+            _put_i32(buf, o + 8, pos)
+            buf[o + 12] = NAME_LEN
+            buf[o + 13] = 60
+            _put_u16(buf, o + 14, np.zeros(A, np.int64))
+            _put_u16(buf, o + 16, np.full(A, 3, np.int64))
+            _put_u16(buf, o + 18, np.where(first, 0, 256))
+            _put_i32(buf, o + 20, l_seq)
+            _put_i32(buf, o + 24, np.full(A, -1, np.int64))
+            _put_i32(buf, o + 28, np.full(A, -1, np.int64))
+            _put_i32(buf, o + 32, np.zeros(A, np.int64))
+            buf[o + 36] = ord("r")
+            for k in range(9):
+                buf[o + 37 + k] = (
+                    (read_idx // 10 ** (8 - k)) % 10 + ord("0")
+                )
+            _put_i32(buf, o + 47, np.full(A, (12 << 4) | 4, np.int64))
+            _put_i32(buf, o + 51, (span.astype(np.int64) << 4) | 0)
+            _put_i32(buf, o + 55, np.full(A, (9 << 4) | 4, np.int64))
+            to = offs[1:] - TAGS
+            buf[to] = ord("A")
+            buf[to + 1] = ord("S")
+            buf[to + 2] = ord("i")
+            _put_i32(buf, to + 3, score)
+            cb = to + CB_OFF
+            buf[cb] = ord("C")
+            buf[cb + 1] = ord("B")
+            buf[cb + 2] = ord("Z")
+            # 16 base-4 digits of the cell index, MSB first
+            for k in range(BCLEN):
+                dig = (cell_idx >> (2 * (BCLEN - 1 - k))) & 3
+                buf[cb + 3 + k] = base_lut[dig]
+            buf[cb + 3 + BCLEN] = 0
+            _compress_payload(fh, buf, tpool)
+        fh.write(BGZF_EOF)
+    return total_alns
+
+
 # ---------------------------------------------------------------------------
 # helpers
 # ---------------------------------------------------------------------------
@@ -386,6 +529,13 @@ class EmLogCapture(logging.Handler):
                       r"iterations \[([0-9, ]*)\]")
     AUTO = re.compile(r"em-impl auto -> (\w+)")
     ROUTING = re.compile(r"v4 routing built in ([0-9.]+)s")
+    LAYOUT = re.compile(r"v4 layout: (\d+) big transcripts, (\w+) middle")
+    SC_PHASE = re.compile(r"phase (sc\.\w+) ([0-9.]+)")
+    SC_PARSED = re.compile(r"parsed (\d+) cells \((\d+) with no surviving "
+                           r"alignments, (\d+) reads kept\)")
+    SC_BUCKET = re.compile(r"sc bucket \((\d+), (\d+), (\d+)\): (\d+) cells, "
+                           r"(\w+), (\d+) sub-batches of at most (\d+), "
+                           r"([0-9.]+)s")
 
     def __init__(self):
         super().__init__(level=logging.INFO)
@@ -393,6 +543,8 @@ class EmLogCapture(logging.Handler):
         self.boot = []
         self.auto = []
         self.routing = []
+        self.layout = []
+        self.sc = []
         self.cache_hits = 0
         self.warnings = []
 
@@ -411,6 +563,13 @@ class EmLogCapture(logging.Handler):
         m = self.ROUTING.search(msg)
         if m:
             self.routing.append(float(m.group(1)))
+        m = self.LAYOUT.search(msg)
+        if m:
+            self.layout.append((int(m.group(1)), m.group(2) == "fused"))
+        for pattern in (self.SC_PHASE, self.SC_PARSED, self.SC_BUCKET):
+            m = pattern.search(msg)
+            if m:
+                self.sc.append((pattern, m.groups()))
         if "v4 plan cache hit" in msg:
             self.cache_hits += 1
         if record.levelno >= logging.WARNING:
@@ -957,8 +1116,165 @@ def phase_k2_k3_k4_vs_plain(csr, R, T, device) -> dict:
                     moved=nbytes(zg8, got, data.seg_id, m, st_a.off,
                                  st_b.off)))
     res["route_middle_replicates"] = arm4
+    res["row_sums"] = row_sums_vs_plain(data, values, device)
     emit("k2_k3_k4_vs_plain", plan=plan, bit_equal=True, replicates=B, **res)
     return dict(plan=plan, **res)
+
+
+def torch_txp_sums(data, inc_t: torch.Tensor) -> torch.Tensor:
+    """The transcript layout's row sums as the parent's glue took them
+    before the row-sum kernel replaced it, kept here only to time the code
+    that was replaced: one torch `sum` per bucket over a split of the slot
+    space into 128-lane rows, and the big transcripts' second level as
+    differences of a `cumsum`. Returns `[..., row_space_s + n_big]`."""
+    L = rs.LANES
+    lead = inc_t.shape[:-1]
+    rows = inc_t.reshape(*lead, -1, L)
+    sizes, buckets, pos = [], [], 0
+    for (rows_pad, K), start in zip(*data.txp_buckets):
+        g, r0 = rows_pad // L, start // L
+        if r0 > pos:
+            sizes.append(r0 - pos)
+            buckets.append(None)
+        sizes.append(g * K)
+        buckets.append((g, K))
+        pos = r0 + g * K
+    if rows.shape[-2] > pos:
+        sizes.append(rows.shape[-2] - pos)
+        buckets.append(None)
+    sums = torch.cat([
+        piece.view(*lead, *gk, L).sum(dim=-2)
+        for piece, gk in zip(torch.split(rows, sizes, dim=-2), buckets)
+        if gk is not None], dim=-2).reshape(*lead, -1)
+    parts = [sums[..., : data.row_space_s]]
+    if data.big_rows_pad:
+        cs = torch.cat([inc_t.new_zeros((*lead, 1)), torch.cumsum(
+            sums[..., data.row_space_s:], dim=-1)], dim=-1)
+        o = data.big_row_offsets
+        parts.append(cs.index_select(-1, o[1:]) - cs.index_select(-1, o[:-1]))
+    return torch.cat(parts, dim=-1)
+
+
+def table_work(table) -> tuple:
+    """(values read, sums written) of one pass over a row-sum table."""
+    ends = np.append(table.entries[1:, 0], table.n_out)
+    counts = ends - table.entries[:, 0]
+    return int((counts * table.entries[:, 2]).sum()), table.n_out
+
+
+def slot_outputs(table, n_in: int) -> np.ndarray:
+    """The output each of `n_in` values is added to under a row-sum
+    table, -1 for a value no entry reads (gaps between buckets, the
+    tail)."""
+    idx = np.full(n_in, -1, dtype=np.int64)
+    ends = np.append(table.entries[1:, 0], table.n_out)
+    for (off, base, K, W), end in zip(table.entries.tolist(), ends.tolist()):
+        count = end - off
+        q = off + np.arange(count, dtype=np.int64).reshape(count // W, 1, W)
+        idx[base : base + count * K] = np.broadcast_to(
+            q, (count // W, K, W)).reshape(-1)
+    return idx
+
+
+def tail_index(data, txp, big, n_t: int, device) -> tuple:
+    """(index, outputs) for one `index_add_` that computes the transcript
+    tail (bucket sums, then each big transcript's rows summed): every slot
+    mapped straight to its small-bucket row or its big transcript, the
+    slots that no sum reads to a dump output after the last. Made once per
+    layout, like the kernel's tables."""
+    first = slot_outputs(txp, n_t)
+    n_small, n_out = data.row_space_s, data.row_space_s
+    out = first.copy()
+    if data.big_rows_pad:
+        second = slot_outputs(big, txp.n_out)
+        n_out += big.n_out
+        hi = first >= n_small
+        out[hi] = np.where(second[first[hi]] >= 0,
+                           n_small + second[first[hi]], -1)
+    out[out < 0] = n_out
+    return torch.as_tensor(out, device=device), n_out
+
+
+def row_sums_vs_plain(data, values, device) -> dict:
+    """The row-sum kernel on the bench plan's tables (the transcript
+    layout, its big transcripts' second level, the read layout), f32 and
+    f64, alone and at 8 replicates, bit for bit against its plain version;
+    the m-step's two launches (both levels of the transcript tail) timed
+    against the torch sums they replaced, alone and at 8 replicates."""
+    B = REPLICATES
+    CR, L = data.p_a.chunk_rows, rs.LANES
+    txp, big, rd = (data.txp_sum_table, data.big_sum_table,
+                    data.read_sum_table)
+    n_t, n_r = data.p_a.n_src * CR * L, data.p_a.n_dst * CR * L
+    err = 0.0
+    for tag, table, n in (("txp", txp, n_t), ("read", rd, n_r)):
+        for shape, dtype in (((n,), torch.float32), ((B, n), torch.float32),
+                             ((n,), torch.float64)):
+            x = values(*shape).to(dtype)
+            got = rsm.row_sums_cuda(x, table)
+            err = max(err, bit_equal(f"row_sums {tag} {shape} {dtype}", got,
+                                     rsm.row_sums_reference(x, table)))
+            if tag == "txp" and data.big_rows_pad:
+                err = max(err, bit_equal(
+                    f"row_sums big {shape} {dtype}",
+                    rsm.row_sums_cuda(got, big),
+                    rsm.row_sums_reference(got, big)))
+
+    def tail(x):
+        sums = rsm.row_sums_cuda(x, txp)
+        return rsm.row_sums_cuda(sums, big) if data.big_rows_pad else sums
+
+    def tail_plain(x):
+        sums = rsm.row_sums_reference(x, txp)
+        return rsm.row_sums_reference(sums, big) if data.big_rows_pad else sums
+
+    # the library's one call for the same function: `index_add_` of every
+    # slot into its output (atomic adds: timed and held close, not to bits)
+    idx, n_lib = tail_index(data, txp, big, n_t, device)
+
+    def library(x):
+        return x.new_zeros((*x.shape[:-1], n_lib + 1)).index_add_(-1, idx, x)
+
+    def tail_out(x):
+        sums = rsm.row_sums_cuda(x, txp)
+        if not data.big_rows_pad:
+            return sums[..., : data.row_space_s]
+        return torch.cat([sums[..., : data.row_space_s],
+                          rsm.row_sums_cuda(sums, big)], dim=-1)
+
+    reads, writes = table_work(txp)
+    if data.big_rows_pad:
+        r2, w2 = table_work(big)
+        reads, writes = reads + r2, writes + w2
+    out = dict(tables=dict(txp_entries=len(txp.entries),
+                           big_entries=len(big.entries) if data.big_rows_pad
+                           else 0, read_entries=len(rd.entries),
+                           txp_outputs=txp.n_out, read_outputs=rd.n_out),
+               max_abs_err=err, launches_per_m_step=1 + int(
+                   bool(data.big_rows_pad)))
+    for tag, reps in (("single", 1), ("x8", B)):
+        x = values(*((n_t,) if reps == 1 else (reps, n_t)))
+        want, lib = tail_out(x), library(x)[..., :n_lib]
+        lib_err = float((lib - want).abs().max())
+        assert lib_err <= 1e-4 * float(want.abs().max()), (
+            f"index_add_ yardstick differs from the kernel by {lib_err}")
+        m = dict(
+            ms=time_ms(lambda: tail(x), device),
+            device_ms=device_ms(lambda: tail(x), device),
+            plain_ms=time_ms(lambda: tail_plain(x), device, 2, 1),
+            library_ms=time_ms(lambda: library(x), device),
+            library_device_ms=device_ms(lambda: library(x), device),
+            library_max_abs_err=lib_err,
+            torch_sums_ms=time_ms(lambda: torch_txp_sums(data, x), device),
+            torch_sums_device_ms=device_ms(lambda: torch_txp_sums(data, x),
+                                           device),
+            **bound(nbytes(txp.device_entries, big.device_entries)
+                    + 4 * reps * (reads + writes), reps * reads))
+        if tag == "single":
+            out.update(m)
+        else:
+            out.update({f"{k}_8_replicates": v for k, v in m.items()})
+    return out
 
 
 def phase_em_full_width(csr, R, T, device, tmp: Path, capture, fused: bool):
@@ -986,6 +1302,7 @@ def phase_em_full_width(csr, R, T, device, tmp: Path, capture, fused: bool):
         opts = resolve_filters(args)
         n_em, n_boot = len(capture.em), len(capture.boot)
         n_route, hits = len(capture.routing), capture.cache_hits
+        n_layout = len(capture.layout)
         reset_launch_counts()
         t0 = time.time()
         counts = perform_inference_and_write_output(
@@ -1010,7 +1327,9 @@ def phase_em_full_width(csr, R, T, device, tmp: Path, capture, fused: bool):
         if impl == "pallas":
             want["sorted_gather"] = m_steps + batched
         elif impl == "v4":
-            want = v4_launches(m_steps + batched, fused, batched)
+            n_big, fused_run = capture.layout[n_layout]
+            assert fused_run == fused, (fused_run, fused)
+            want = v4_launches(m_steps + batched, fused, n_big > 0, batched)
         assert launched == want, (impl, launched, want)
         assert np.isfinite(counts).all() and counts.shape == (T,)
         assert np.array_equal(read_quant(str(tmp / tag) + ".quant"), counts)
@@ -1064,14 +1383,9 @@ def phase_em_full_width(csr, R, T, device, tmp: Path, capture, fused: bool):
 
     # replicate 0 of the batched program against a serial run with the same
     # multiplicities (the run's seed and defaults; the plan comes out of the
-    # plan cache): the same number of iterations. The kernels give every
-    # replicate the bits of a single launch and on the CPU the whole run is
-    # bit-equal (tests); on the card torch's `sum` splits a row-sum
-    # reduction by its number of outputs, so the glue of a batch adds in
-    # another order and a thousand f32 iterations of a problem with flat
-    # directions drift apart: held as one EM against another in this script,
-    # by L1 / reads (1e-4; between formulations it is 2e-3), and reported
-    # with the largest difference and whether the bits agree
+    # plan cache): the same number of iterations and the same bits. The
+    # kernels give every replicate the bits of a single launch, and the
+    # glue's row sums add each row in a fixed order whatever the batch
     data, order = em_v4.EmV4Data.build(txp_id, w, boundaries, T,
                                        device=device)
     defaults = Args()
@@ -1087,7 +1401,8 @@ def phase_em_full_width(csr, R, T, device, tmp: Path, capture, fused: bool):
     batch_iters = runs["v4"]["bootstrap_iterations"]
     assert int(serial_iters) == batch_iters[0], (int(serial_iters), batch_iters)
     serial_l1 = float(np.abs(reps[0] - serial).sum() / R)
-    assert serial_l1 < 1e-4, f"replicate 0 vs serial run L1/R = {serial_l1}"
+    assert np.array_equal(reps[0], serial), (
+        f"replicate 0 differs from its serial run (L1/R = {serial_l1})")
     del data
 
     out = dict(R=R, T=T, A=A, dtype="float32", **runs, launches=total,
@@ -1135,14 +1450,17 @@ def phase_cli_e2e(R, T, device, tmp: Path, capture):
     n_alns = build_e2e_bam(bam, R, T)
     gen_s = time.time() - t0
     # the defaults: cuda, and `auto`, which takes v4 at this size
-    n_auto, n_route = len(capture.auto), len(capture.routing)
+    n_auto, n_route, n_layout = (len(capture.auto), len(capture.routing),
+                                 len(capture.layout))
     argv, counts, kept, meta, (impl, iters, em_s), launched, wall = run_cli(
         bam, tmp / "cli", [], device, capture)
     assert counts.shape == (T,)
     assert capture.auto[n_auto:] == ["v4"], capture.auto[n_auto:]
     assert impl == "v4", f"auto chose {impl}, expected v4"
-    assert launched in (v4_launches(iters + 1, True),
-                        v4_launches(iters + 1, False)), (launched, iters)
+    assert len(capture.layout) == n_layout + 1
+    n_big, fused = capture.layout[-1]
+    assert launched == v4_launches(iters + 1, fused, n_big > 0), (
+        launched, iters, n_big, fused)
     res = dict(
         R=R, T=T, records=n_alns, reads_kept=kept,
         native_decoder=native.available(),
@@ -1193,6 +1511,150 @@ def phase_cli_e2e(R, T, device, tmp: Path, capture):
                      check_s=round(time.time() - t0, 2)))
     emit("cli_e2e", **res)
     return res, {k: launched[k] + launched2[k] for k in KERNELS}
+
+
+def read_mtx(path: Path):
+    """(rows, cols, values, (n_rows, n_cols)) of a MatrixMarket file the
+    single-cell writer wrote, 0-based."""
+    with open(path, "rb") as fh:
+        assert fh.readline().startswith(b"%%MatrixMarket"), path
+        n_rows, n_cols, nnz = map(int, fh.readline().split())
+        tok = np.array(fh.read().split()).reshape(-1, 3)
+    assert len(tok) == nnz, (len(tok), nnz)
+    return (tok[:, 0].astype(np.int64) - 1, tok[:, 1].astype(np.int64) - 1,
+            tok[:, 2].astype(np.float64), (n_rows, n_cols))
+
+
+def sparse_l1(a, b, n_cols: int) -> float:
+    """Sum of |a - b| over the union of two matrices' entries."""
+    keys = np.concatenate([a[0] * n_cols + a[1], b[0] * n_cols + b[1]])
+    vals = np.concatenate([a[2], -b[2]])
+    _, inv = np.unique(keys, return_inverse=True)
+    return float(np.abs(np.bincount(inv, weights=vals)).sum())
+
+
+def dense_m_step(bucket: dict, device) -> dict:
+    """One dense m-step (`_m_step_dense`, f32) of a sub-batch at a
+    bucket's shape, its cells filled to the padded widths: the profiler's
+    device time and the time between CUDA events, against the least time
+    of its work (S and R, the weights, `prev` read once, `curr` written
+    once; four batched matrix-vector products at the f32 rate)."""
+    a, r, t, sub = (bucket[k] for k in ("a_pad", "r_pad", "t_pad",
+                                        "sub_batch"))
+    rng = np.random.default_rng(4)
+    txp = [rng.integers(0, t, a).astype(np.int32) for _ in range(sub)]
+    rid = [np.sort(rng.integers(0, r, a)).astype(np.int32)
+           for _ in range(sub)]
+    w = [rng.random(a) for _ in range(sub)]
+    sr = DenseCellEm.build(txp, w, rid, a, r, t, dtype=torch.float32,
+                           device=device).densify()
+    prev = torch.ones((sub, t), dtype=torch.float32, device=device)
+    step = lambda: _m_step_dense(sr, prev)  # noqa: E731
+    assert torch.isfinite(step()).all()
+    return dict(
+        a_pad=a, r_pad=r, t_pad=t, sub_batch=sub,
+        device_ms=device_ms(step, device), ms=time_ms(step, device),
+        **bound(nbytes(sr.S, sr.R, sr.weights, prev) + prev.numel() * 4,
+                4 * sub * (a * t + r * a)))
+
+
+def phase_single_cell(device, tmp: Path, capture) -> dict:
+    """A CB-collated BAM at the JAX package's single-cell scale through
+    the CLI with `--single-cell` on the card (`auto` -> dense), then again
+    with `OARFISH_SC_IMPL=segsum` on the card: phases, cells/s, buckets,
+    peak device memory; the matrix's mass against the reads kept, and the
+    two runs against each other; then control runs of dense with less
+    precise products, which the limit must tell from a sound one. This path launches none of the hand-written
+    kernels (its products are `torch.bmm`)."""
+    bam = tmp / "sc.bam"
+    t0 = time.time()
+    n_alns = build_sc_bam(bam, SC_CELLS, SC_READS_PER_CELL, SC_TXPS)
+    gen_s = time.time() - t0
+    runs, mats = {}, {}
+    for impl, want_impl in (("auto", "dense"), ("segsum", "segsum")):
+        out = tmp / f"sc_{impl}"
+        n_sc, warn0 = len(capture.sc), len(capture.warnings)
+        os.environ["OARFISH_SC_IMPL"] = impl
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launch_counts()
+        t0 = time.time()
+        try:
+            rc = cli_main(["--alignments", str(bam), "-o", str(out),
+                           "--single-cell"])
+            torch.cuda.synchronize(device)
+        finally:
+            del os.environ["OARFISH_SC_IMPL"]
+        wall = time.time() - t0
+        launched = launch_counts()
+        assert rc == 0
+        assert not any(launched.values()), launched
+        assert not capture.warnings[warn0:], capture.warnings[warn0:]
+        logged = capture.sc[n_sc:]
+        phases = {g[0]: float(g[1]) for p, g in logged
+                  if p is capture.SC_PHASE}
+        (cells, empty, reads), = [tuple(map(int, g)) for p, g in logged
+                                  if p is capture.SC_PARSED]
+        buckets = [dict(a_pad=int(g[0]), r_pad=int(g[1]), t_pad=int(g[2]),
+                        cells=int(g[3]), impl=g[4], sub_batches=int(g[5]),
+                        sub_batch=int(g[6]), s=float(g[7]))
+                   for p, g in logged if p is capture.SC_BUCKET]
+        assert {b["impl"] for b in buckets} == {want_impl}, buckets
+        assert cells == SC_CELLS and sum(b["cells"] for b in buckets) == (
+            cells - empty), (cells, empty, buckets)
+        rows, cols, vals, shape = read_mtx(Path(str(out) + ".count.mtx"))
+        assert shape == (cells, SC_TXPS), shape
+        assert np.isfinite(vals).all() and (vals > 0).all()
+        n_bc = len(Path(str(out) + ".barcodes.txt").read_text().splitlines())
+        assert n_bc == cells, n_bc
+        mass_err = abs(vals.sum() - reads) / reads
+        assert mass_err < 1e-5, f"{impl}: mass {vals.sum()} vs {reads} reads"
+        runs[want_impl] = dict(
+            wall_s=round(wall, 3), cells_per_s=cells / wall,
+            phases_s=phases, cells=cells, empty_cells=empty,
+            reads_kept=reads, nnz=len(vals), buckets=buckets,
+            max_memory_allocated_mb=round(
+                torch.cuda.max_memory_allocated(device) / 2**20, 1),
+            mass_rel_err=mass_err)
+        mats[want_impl] = (rows, cols, vals)
+    l1 = sparse_l1(mats["dense"], mats["segsum"], SC_TXPS) / reads
+    assert l1 < SC_DENSE_VS_SEGSUM, f"dense vs segsum L1/R = {l1}"
+    # controls, the dense path with less precise products, which the limit
+    # must tell from a sound run: TF32 allowed (printed only: cuBLAS runs
+    # these matrix-vector products without it), and `prev` rounded to bf16
+    # before every m-step (gated: it must land over the limit)
+    def control(tag, tf32=False, m_step=None):
+        os.environ["OARFISH_SC_IMPL"] = "dense"
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        if m_step is not None:
+            em_dense._m_step_dense = m_step
+        try:
+            assert cli_main(["--alignments", str(bam), "-o",
+                             str(tmp / f"sc_{tag}"), "--single-cell"]) == 0
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            em_dense._m_step_dense = _m_step_dense
+            del os.environ["OARFISH_SC_IMPL"]
+        got = read_mtx(Path(str(tmp / f"sc_{tag}") + ".count.mtx"))[:3]
+        return sparse_l1(got, mats["segsum"], SC_TXPS) / reads
+
+    l1_tf32 = control("tf32", tf32=True)
+    l1_bf16 = control("bf16_prev", m_step=lambda data, prev: _m_step_dense(
+        data, prev.to(torch.bfloat16).to(prev.dtype)))
+    assert l1_bf16 >= SC_DENSE_VS_SEGSUM, (
+        f"the limit {SC_DENSE_VS_SEGSUM} passes a run with bf16 prev "
+        f"(L1/R {l1_bf16})")
+    top = max(runs["dense"]["buckets"], key=lambda b: b["cells"])
+    res = dict(
+        cells=SC_CELLS, reads_per_cell=SC_READS_PER_CELL, T=SC_TXPS,
+        records=n_alns, bam_mb=round(bam.stat().st_size / 2**20, 1),
+        bam_build_s=round(gen_s, 2), **runs,
+        l1_over_R_dense_vs_segsum=l1, l1_over_R_limit=SC_DENSE_VS_SEGSUM,
+        control_tf32_l1_over_R_vs_segsum=l1_tf32,
+        control_bf16_prev_l1_over_R_vs_segsum=l1_bf16,
+        dense_m_step_most_populous_bucket=dense_m_step(top, device))
+    bam.unlink()
+    emit("single_cell", **res)
+    return res
 
 
 def phase_covmodel_device_vs_host(bam: Path, argv, kept: int, device) -> dict:
@@ -1390,6 +1852,7 @@ def main(argv=None) -> int:
             csr, R, T, device, tmp, capture,
             fused=k234["plan"]["fused_middle"])
         cli, launches_cli = phase_cli_e2e(R, T, device, tmp, capture)
+        phase_single_cell(device, tmp, capture)
         if ns.breakdown:
             phase_em_breakdown(csr, T, device, ns.profile_dir)
     finally:
@@ -1470,6 +1933,15 @@ def main(argv=None) -> int:
         replicates=REPLICATES, measured_on="no mult",
         **device_times(arm4["point"]),
         **also(arm4["replicate"], "replicate")))
+    row = k234["row_sums"]
+    kernels.append(entry(
+        "row_sums", row, measured_on="the transcript tail's launches of an "
+        "m-step (bucket sums, big transcripts' second level)",
+        **device_times(row),
+        **{k: row[k] for k in row
+           if k.startswith(("torch_sums", "tables", "launches_per",
+                            "library_max"))
+           or k.endswith("_8_replicates")}))
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("total", seconds=round(time.time() - t_start, 1))
     print(smi, flush=True)

@@ -3,15 +3,19 @@
 Counterpart of the JAX package's `cli.py`: the reference's flag surface
 (`src/prog_opts.rs:250-566`) and mode dispatch (`src/main.rs:319-485`)
 with the same flag names, defaults, filter-group overlay semantics and
-input-mode exclusivity rules, plus `--device`. Only transcriptome-BAM
-bulk mode is ported; every other mode parses and validates as before and
-then raises `NotImplementedError` naming its ROADMAP.md queue item.
+input-mode exclusivity rules, plus `--device`. Transcriptome-BAM bulk
+mode and single-cell mode (`--single-cell`) are ported; every other mode
+parses and validates as before and then raises `NotImplementedError`
+naming its ROADMAP.md queue item. The run is one process: the JAX
+package's multi-process environment is read and a count above one
+raises (`resolve_processes`).
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 from pathlib import Path
 
@@ -286,6 +290,37 @@ def validate_modes(args: Args, parser: argparse.ArgumentParser) -> None:
         parser.error("--output is required unless --only-index is given")
 
 
+def resolve_processes(args: Args) -> None:
+    """The process layout, with the JAX package's environment fallbacks
+    for absent flags (`OARFISH_NUM_PROCESSES`, and `OARFISH_COORDINATOR`
+    for the message). The port runs one process: a count above 1, from
+    either source, raises before any input is opened. A `{proc}`
+    placeholder in `--alignments` or a `--reads` path is then this
+    process's index, 0 (`OARFISH_PROCESS_ID` names no other in one
+    process); `args.sharded_inputs` stays unset, as it does in the JAX
+    package's single process."""
+    from .quant.bulk import not_ported
+
+    num_processes = args.num_processes or int(
+        os.environ.get("OARFISH_NUM_PROCESSES") or 0)
+    if num_processes > 1:
+        coordinator = args.coordinator or os.environ.get("OARFISH_COORDINATOR")
+        raise not_ported(
+            f"the multi-process run of {num_processes} processes "
+            f"(coordinator {coordinator}; --num-processes or "
+            "OARFISH_NUM_PROCESSES)", "queue A item 6",
+        )
+
+    def proc0(path):
+        if path is None or "{proc}" not in str(path):
+            return path
+        return type(path)(str(path).replace("{proc}", "0"))
+
+    args.alignments = proc0(args.alignments)
+    if args.reads:
+        args.reads = [proc0(p) for p in args.reads]
+
+
 def main(argv=None) -> int:
     parser = build_parser()
     ns = parser.parse_args(argv)
@@ -311,6 +346,7 @@ def main(argv=None) -> int:
 
     from .quant.bulk import not_ported, quantify_bulk_alignments_from_bam
 
+    resolve_processes(args)
     if args.only_index or args.reads is not None or args.genome is not None:
         raise not_ported(
             "raw-read input (--reads, --genome, --only-index)",
@@ -321,9 +357,11 @@ def main(argv=None) -> int:
             "genome-BAM input (--genome-alignments)", "queue A item 5"
         )
     if args.single_cell:
-        raise not_ported("--single-cell", "queue A item 4")
+        from .quant.single_cell import quantify_single_cell_from_collated_bam
 
-    quantify_bulk_alignments_from_bam(args, opts)
+        quantify_single_cell_from_collated_bam(args, opts)
+    else:
+        quantify_bulk_alignments_from_bam(args, opts)
     log.info("oarfish-tpu-torch completed successfully.")
     return 0
 

@@ -42,7 +42,7 @@ NVCC_FLAGS = (
 )
 
 CUDA_KERNELS = ("sorted_gather", "tile_permute", "route_stage",
-                "route_middle")
+                "route_middle", "row_sums")
 
 # name -> seconds the build took in this process (0.0 = found up to date)
 build_seconds: Dict[str, float] = {}

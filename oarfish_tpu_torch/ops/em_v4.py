@@ -34,9 +34,14 @@ level, keeping the bucket padding ~10% instead of the up-to-2x of pure
 power-of-two rounding.
 
 Semantics match the reference serial EM (`em.rs:87-255`) exactly as
-`em_fast` does. The kernels are bit-equal to their plain versions; the
-glue's sums (`_row_sums`, the big-transcript `cumsum`) are taken in
-torch's order, so a whole EM agrees with the JAX package's to tolerance.
+`em_fast` does. The kernels are bit-equal to their plain versions. The
+glue's sums (the bucket row sums and the big-transcript second level) go
+through the row-sum kernel of `row_sums.py`, which adds each row in XLA's
+CPU order whatever the replicates around it: a replicate of a batch is
+bit-equal to the same replicate alone, and the bucket sums equal the JAX
+package's. The second level adds row sums where the JAX package takes
+differences of a `cumsum`, and the routes' stages add in their own order,
+so a whole EM agrees with the JAX package's to tolerance.
 
 A batch of bootstrap replicates is one program: the glue takes a leading
 replicate axis and `_m_step_v4_batch` sends all replicates through one
@@ -59,6 +64,7 @@ from __future__ import annotations
 import logging
 import time
 from dataclasses import dataclass
+from functools import cached_property
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -70,6 +76,7 @@ from . import balance as _balance
 from . import plan_cache
 from .em import em_loop, finish_em, squarem_loop
 from .route_middle import route_middle
+from .row_sums import RowSumTable, bucket_table, row_sums, segment_table
 from .static_permute import (
     CH,
     LANES,
@@ -181,6 +188,25 @@ class EmV4Data:
     def txp_buckets(self):
         return txp_buckets(self.small_shapes, self.small_starts,
                            self.big_rows_pad, self.n_slots_t)
+
+    @cached_property
+    def txp_sum_table(self) -> RowSumTable:
+        """Row sums of the transcript layout: the small buckets' rows,
+        then the big region's (`row_space_s + big_rows_pad` outputs)."""
+        return bucket_table(*self.txp_buckets, self.device)
+
+    @cached_property
+    def big_sum_table(self) -> RowSumTable:
+        """The second level: each big transcript's consecutive rows of
+        the big region, read out of the transcript layout's row sums."""
+        return segment_table(self.big_row_offsets.cpu().numpy(),
+                             self.row_space_s, self.device)
+
+    @cached_property
+    def read_sum_table(self) -> RowSumTable:
+        """Row sums of the read layout (the unfused middle's
+        denominators)."""
+        return bucket_table(self.read_shapes, self.read_starts, self.device)
 
     @property
     def max_lvl(self) -> int:
@@ -1030,38 +1056,10 @@ def _row_sources(shapes, starts, total_rows: int) -> np.ndarray:
     return src
 
 
-def _row_sums(slots: torch.Tensor, shapes, starts) -> torch.Tensor:
-    """Per-row sums in the column-major layout: `slots` `[..., n]` ->
-    `[..., sum rows_pad]`, position = bucket row index (pads sum to zero);
-    leading axes (replicates) are kept. The bucket views come from one
-    `split` of the slot space into 128-lane rows."""
-    lead = slots.shape[:-1]
-    rows = slots.reshape(*lead, -1, LANES)
-    sizes, buckets = [], []
-    pos = 0
-    for (rows_pad, K), start in zip(shapes, starts):
-        g, r0 = rows_pad // LANES, start // LANES
-        if r0 > pos:
-            sizes.append(r0 - pos)
-            buckets.append(None)
-        sizes.append(g * K)
-        buckets.append((g, K))
-        pos = r0 + g * K
-    if rows.shape[-2] > pos:
-        sizes.append(rows.shape[-2] - pos)
-        buckets.append(None)
-    sums = [piece.view(*lead, *gk, LANES).sum(dim=-2)
-            for piece, gk in zip(torch.split(rows, sizes, dim=-2), buckets)
-            if gk is not None]
-    if not sums:
-        return slots.new_zeros((*lead, 0))
-    return torch.cat(sums, dim=-2).reshape(*lead, -1)
-
-
 def _row_broadcast(values: Sequence[torch.Tensor],
                    row_src: torch.Tensor) -> torch.Tensor:
-    """Inverse of `_row_sums`: expand one value per bucket row (`values`,
-    concatenated along the last axis) across its K column-major slots,
+    """Inverse of the bucket row sums: expand one value per bucket row
+    (`values`, concatenated along the last axis) across its K slots,
     zeros outside the buckets. One gather of 128-lane rows by the layout's
     static `_row_sources`; leading axes (replicates) are kept."""
     lead = values[0].shape[:-1]
@@ -1089,15 +1087,12 @@ def _txp_tail(data: EmV4Data, inc_t: torch.Tensor) -> torch.Tensor:
     in t_space (row sums, big-transcript second level, output tile
     permute)."""
     lead = inc_t.shape[:-1]
-    sums = _row_sums(inc_t, *data.txp_buckets)
+    sums = row_sums(inc_t, data.txp_sum_table)
     parts = [sums[..., : data.row_space_s]]
     n = data.row_space_s
     if data.big_rows_pad:
-        big_rows = sums[..., data.row_space_s :]
-        cs = torch.cat([inc_t.new_zeros((*lead, 1)),
-                        torch.cumsum(big_rows, dim=-1)], dim=-1)
-        o = data.big_row_offsets
-        parts.append(cs.index_select(-1, o[1:]) - cs.index_select(-1, o[:-1]))
+        # second level: each big transcript's consecutive row sums
+        parts.append(row_sums(sums, data.big_sum_table))
         n += data.n_big
     # pad positions route only zeros and stay zero every iteration
     parts.append(inc_t.new_zeros((*lead, data.t_space - n)))
@@ -1153,7 +1148,7 @@ def _middle_unfused(data: EmV4Data, prev_slots: torch.Tensor,
     the path of a layout with a read bucket wider than a route chunk
     (`seg_id is None`)."""
     contrib_r = data.p_a(prev_slots, mul=data.w_txp, sliced=False)
-    denom = _row_sums(contrib_r, data.read_shapes, data.read_starts)
+    denom = row_sums(contrib_r, data.read_sum_table)
     scale = torch.where(denom > EM_DENOM_THRESH, 1.0 / denom, 0.0)
     if multiplicity is not None:
         scale = scale * multiplicity

@@ -98,6 +98,11 @@ def check_ported(args: Args) -> None:
     """Raise for every option whose code path waits for a later port."""
     if args.em_impl == "v3":
         raise not_ported("--em-impl v3", "queue A item 7")
+    check_one_device(args)
+
+
+def check_one_device(args: Args) -> None:
+    """Raise for a run across several devices or processes."""
     if args.num_shards > 1 or (args.num_processes or 0) > 1:
         raise not_ported(
             "the sharded / multi-process EM (--num-shards > 1, "
@@ -217,6 +222,8 @@ def perform_inference_and_write_output(
                 f"alignments ({e}); use --em-impl pallas"
             ) from e
         log.info("v4 routing built in %.1fs", time.time() - t0)
+        log.info("v4 layout: %d big transcripts, %s middle", data.n_big,
+                 "fused" if data.seg_id is not None else "unfused")
         run = run_em_v4_squarem if squarem else run_em_v4
     elif impl == "segsum":
         data = build_em_inputs(

@@ -12,7 +12,7 @@ Tolerances, all f32:
   against the NumPy f64 oracle L1/R < 2e-3 and total mass within 1e-4.
   The same bar for the batched SQUAREM run against the JAX package's
   `run_em_v4_batch_squarem`. On the card (`cuda`) a batched replicate
-  against its serial run: the same iterations, L1/R < 1e-5.
+  against its serial run: the same iterations and the same bits.
 * `.quant` of `--em-impl v4` (f32) against `--em-impl segsum` (f64)
   through the port's CLI: L1 per read < 2e-3, mass within 1e-4.
 """
@@ -127,12 +127,11 @@ def test_bootstraps_equal_serial_runs(cases):
 @pytest.mark.cuda
 def test_batched_replicates_on_the_card_match_serial_runs(cases):
     """On the card the kernels give every replicate of a batch the bits of
-    a single launch, but torch's CUDA `sum` splits a reduction by its
-    number of outputs, so the batched glue adds a bucket's rows in another
-    order than a single m-step and a replicate's last bits depend on its
-    batch. Held here: the same iterations as the serial run, and counts
-    within L1 / R < 1e-5 of it (f32, up to 200 iterations), whatever the
-    batch (3 at once, or 2 and 1)."""
+    a single launch, and the glue's row sums (`ops/row_sums.py`) add each
+    row in a fixed order whatever the batch, so a replicate's counts do
+    not depend on its batch: the same iterations as the serial run and the
+    same bits (f32, up to 200 iterations), whatever the batch (3 at once,
+    or 2 and 1)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     c = cases["uniform"]
@@ -152,8 +151,8 @@ def test_batched_replicates_on_the_card_match_serial_runs(cases):
         got, niters = tboot.run_replicates(run, mult, init, batch=batch)
         for b, (want, niter) in enumerate(serial):
             assert int(niters[b]) == int(niter) > 50, (batch, b)
-            l1 = np.abs(got[b] - want.double().cpu().numpy()).sum() / R
-            assert l1 < 1e-5, (batch, b, l1)
+            np.testing.assert_array_equal(
+                got[b], want.double().cpu().numpy(), err_msg=f"{batch} {b}")
             assert abs(got[b].sum() - R) / R < 1e-4
 
 

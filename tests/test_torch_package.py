@@ -11,6 +11,7 @@
 """
 
 import importlib
+import json
 import pkgutil
 import re
 import subprocess
@@ -63,6 +64,9 @@ def test_sources_exist():
                  "oarfish_tpu_torch/ops/plan_cache.py",
                  "oarfish_tpu_torch/ops/bootstrap.py",
                  "oarfish_tpu_torch/models/coverage_torch.py",
+                 "oarfish_tpu_torch/ops/row_sums.py",
+                 "oarfish_tpu_torch/ops/em_dense.py",
+                 "oarfish_tpu_torch/quant/single_cell.py",
                  "oarfish_tpu_torch/device.py", "chip_smoke.py"):
         assert need in names
     from oarfish_tpu_torch.kernels import build
@@ -81,10 +85,11 @@ def test_source_does_not_name_jax(path):
 
 def test_no_source_names_a_finished_queue_item():
     """The batched v4 bootstraps (queue A item 2), the device coverage
-    model (item 3) and the replicate axis of the route kernels (queue B
-    item 1) are ported: nothing in the port still points at them as work to
-    do, and nothing raises `NotImplementedError` for them."""
-    stale = re.compile(r"queue A item [123]\b|queue B")
+    model (item 3), single-cell (item 4) and the replicate axis of the
+    route kernels (queue B item 1) are ported: nothing in the port still
+    points at them as work to do, and nothing raises `NotImplementedError`
+    for them."""
+    stale = re.compile(r"queue A item [1234]\b|queue B")
     for path in port_sources():
         hits = [ln for ln in path.read_text().splitlines()
                 if stale.search(ln)]
@@ -158,7 +163,7 @@ BAM = ["--alignments", "x.bam", "-o", "out", "--device", "cpu"]
     (BAM + ["--em-impl", "v3"], "queue A item 7"),
     (BAM + ["--num-shards", "2"], "queue A item 6"),
     (BAM + ["--num-processes", "2"], "queue A item 6"),
-    (BAM + ["--single-cell"], "queue A item 4"),
+    (BAM + ["--single-cell", "--num-shards", "2"], "queue A item 6"),
     (["--reads", "r.fq", "--annotated", "t.fa", "--seq-tech", "ont-cdna",
       "-o", "out"], "queue A item 5"),
     (["--genome-alignments", "g.bam", "--annotation", "a.gtf", "-o", "out"],
@@ -185,12 +190,59 @@ def test_v4_is_ported_and_v3_is_not():
         torch_main(BAM + ["--em-impl", "v4"])
 
 
-@pytest.mark.parametrize("item", [4, 5, 6, 7])
+@pytest.mark.parametrize("item", [5, 6, 7])
 def test_roadmap_has_the_queue_items_named_in_errors(item):
+    """Queue A keys its items by stable labels (`**A5:` ...); the list
+    numbers give the order of work and change."""
     roadmap = (REPO / "ROADMAP.md").read_text()
     section = roadmap[roadmap.index("### A. Modules to port"):]
     section = section[:section.index("### B.")]
-    assert re.search(rf"^{item}\. \*\*", section, flags=re.M), item
+    assert re.search(rf"\*\*A{item}:", section), item
+
+
+def test_errors_cite_exactly_the_open_queue_items():
+    """Every queue item an error cites is one the test above checks, and
+    single-cell (item 4, ported) is cited no more."""
+    cited = {int(m) for p in port_sources()
+             for m in re.findall(r"queue A item (\d+)", p.read_text())}
+    assert sorted(cited) == [5, 6, 7]
+
+
+def test_process_count_from_the_environment_raises(monkeypatch):
+    """The JAX package's launcher variables are read where the flags are
+    absent: a count above one raises before the input is opened."""
+    monkeypatch.setenv("OARFISH_NUM_PROCESSES", "2")
+    monkeypatch.setenv("OARFISH_PROCESS_ID", "1")
+    monkeypatch.setenv("OARFISH_COORDINATOR", "localhost:1234")
+    for argv in (BAM, BAM + ["--single-cell"]):
+        with pytest.raises(NotImplementedError, match="queue A item 6") as e:
+            torch_main(argv)
+        assert "OARFISH_NUM_PROCESSES" in str(e.value)
+    monkeypatch.setenv("OARFISH_NUM_PROCESSES", "1")
+    with pytest.raises((OSError, ValueError)):  # past the check: no input
+        torch_main(BAM)
+
+
+def test_proc_placeholder_is_process_zero(tmp_path, monkeypatch):
+    """`x.{proc}.bam` reads `x.0.bam` in one process, as the JAX CLI does:
+    the same output files, byte for byte."""
+    from oarfish_tpu.cli import main as jax_main
+    from util_sim import simulate_bam
+
+    monkeypatch.setenv("OARFISH_JAX_CACHE", "0")
+    simulate_bam(tmp_path / "x.0.bam", num_reads=200, seed=8,
+                 names=[f"t{i}" for i in range(6)],
+                 lengths=[1000 + 200 * i for i in range(6)])
+    argv = ["--alignments", str(tmp_path / "x.{proc}.bam"), "--em-dtype",
+            "float64", "--em-impl", "segsum", "--quiet"]
+    assert torch_main(argv + ["-o", str(tmp_path / "t"),
+                              "--device", "cpu"]) == 0
+    assert jax_main(argv + ["-o", str(tmp_path / "j")]) == 0
+    for ext in (".quant", ".ambig_info.tsv"):
+        assert ((tmp_path / f"t{ext}").read_bytes()
+                == (tmp_path / f"j{ext}").read_bytes())
+    meta = json.loads((tmp_path / "t.meta_info.json").read_text())
+    assert meta["alignments"] == str(tmp_path / "x.0.bam")
 
 
 def test_default_device_is_cuda_and_raises_without_it():
