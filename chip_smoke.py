@@ -38,10 +38,13 @@ JSON object per phase goes to standard output:
                  middle at 8 replicates: each bit-equal to its plain
                  version and to 8 launches without the axis, with the same
                  times and bounds (offsets once, values 8 times). Then the
-                 fixed-order row sums of the glue on the plan's tables
-                 (transcript layout, big transcripts, read layout), f32
-                 and f64, alone and at 8 replicates, bit-equal to their
-                 plain version, timed against the torch sums they replaced
+                 fixed-order row sums of the glue: the transcript tail's
+                 one launch (bucket sums, big transcripts' second level,
+                 zero pad) and the read layout's table, f32 and f64,
+                 alone and at 8 replicates, each launched again after
+                 another batch, bit-equal to their plain version; the
+                 tail timed against its bound and `index_add_`, with the
+                 L2 cache warm and flushed before each launch
   em_full_width  the same CSR as an AlignmentStore through
                  `perform_inference_and_write_output` on the card, f32:
                  `--em-impl v4` with 8 bootstrap replicates (one batched
@@ -81,9 +84,9 @@ JSON object per phase goes to standard output:
 Each phase that drives the main path sets every kernel's launch count to 0
 just before and reads the counts just after, and each count must be exact:
 per m-step one sorted gather (`pallas`), or two tile permutes, two route
-stages, one fused middle and one row sum, two with big transcripts (`v4`;
-four route stages, no middle and a row sum more for a layout without a
-level table), with one m-step per iteration plus the final one, per run
+stages, one fused middle and one row sum (`v4`; four route stages, no
+middle and a row sum more for a layout without a level table), with one
+m-step per iteration plus the final one, per run
 and per batch of bootstrap replicates: a batch runs to its slowest
 replicate's count, all replicates in the same launches, which are counted
 a second time as launches of the replicate-axis arms. The single-cell
@@ -192,19 +195,17 @@ def launch_counts() -> dict:
             for name, (module, counter, _, _) in KERNELS.items()}
 
 
-def v4_launches(m_steps: int, fused: bool, big: bool,
-                batched_steps: int = 0) -> dict:
+def v4_launches(m_steps: int, fused: bool, batched_steps: int = 0) -> dict:
     """Launches of `m_steps` routed m-steps, `batched_steps` of them those
     of a batch of replicates on a layout that runs it as one program. The
-    row sums: the transcript layout's, the big transcripts' second level
-    where the layout has big transcripts, the read layout's where the
-    middle is not fused."""
+    row sums: the transcript tail (both levels and the zero pad in one
+    launch), and the read layout's where the middle is not fused."""
     return {"sorted_gather": 0, "tile_permute": 2 * m_steps,
             "route_stage": (2 if fused else 4) * m_steps,
             "route_middle": m_steps if fused else 0,
             "route_stage_replicates": 2 * batched_steps,
             "route_middle_replicates": batched_steps,
-            "row_sums": (1 + int(big) + int(not fused)) * m_steps}
+            "row_sums": (1 + int(not fused)) * m_steps}
 
 
 def emit(phase: str, **fields) -> None:
@@ -716,9 +717,11 @@ def bound(n_bytes: int, n_ops: int, moved: Optional[int] = None) -> dict:
     return out
 
 
-def device_ms(fn, device, calls: int = 20, attempts: int = 4):
+def device_ms(fn, device, calls: int = 20, attempts: int = 4,
+              only: Optional[str] = None):
     """Device time of one `fn()` in ms by `torch.profiler`: the kernels'
-    own time on the card, without the host's time to launch them.
+    own time on the card, without the host's time to launch them; with
+    `only`, of the kernels whose name holds it.
 
     Now and then a profiling session hands back no kernel records at all
     (CUPTI drops the window); it is then profiled anew. Where every attempt
@@ -736,7 +739,8 @@ def device_ms(fn, device, calls: int = 20, attempts: int = 4):
                 fn()
             torch.cuda.synchronize(device)
         total = sum(e.device_time_total for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA)
+                    if e.device_type == DeviceType.CUDA
+                    and (only is None or only in e.key))
         if total > 0:
             return total / calls / 1e3
         logging.getLogger(__name__).warning(
@@ -1121,47 +1125,6 @@ def phase_k2_k3_k4_vs_plain(csr, R, T, device) -> dict:
     return dict(plan=plan, **res)
 
 
-def torch_txp_sums(data, inc_t: torch.Tensor) -> torch.Tensor:
-    """The transcript layout's row sums as the parent's glue took them
-    before the row-sum kernel replaced it, kept here only to time the code
-    that was replaced: one torch `sum` per bucket over a split of the slot
-    space into 128-lane rows, and the big transcripts' second level as
-    differences of a `cumsum`. Returns `[..., row_space_s + n_big]`."""
-    L = rs.LANES
-    lead = inc_t.shape[:-1]
-    rows = inc_t.reshape(*lead, -1, L)
-    sizes, buckets, pos = [], [], 0
-    for (rows_pad, K), start in zip(*data.txp_buckets):
-        g, r0 = rows_pad // L, start // L
-        if r0 > pos:
-            sizes.append(r0 - pos)
-            buckets.append(None)
-        sizes.append(g * K)
-        buckets.append((g, K))
-        pos = r0 + g * K
-    if rows.shape[-2] > pos:
-        sizes.append(rows.shape[-2] - pos)
-        buckets.append(None)
-    sums = torch.cat([
-        piece.view(*lead, *gk, L).sum(dim=-2)
-        for piece, gk in zip(torch.split(rows, sizes, dim=-2), buckets)
-        if gk is not None], dim=-2).reshape(*lead, -1)
-    parts = [sums[..., : data.row_space_s]]
-    if data.big_rows_pad:
-        cs = torch.cat([inc_t.new_zeros((*lead, 1)), torch.cumsum(
-            sums[..., data.row_space_s:], dim=-1)], dim=-1)
-        o = data.big_row_offsets
-        parts.append(cs.index_select(-1, o[1:]) - cs.index_select(-1, o[:-1]))
-    return torch.cat(parts, dim=-1)
-
-
-def table_work(table) -> tuple:
-    """(values read, sums written) of one pass over a row-sum table."""
-    ends = np.append(table.entries[1:, 0], table.n_out)
-    counts = ends - table.entries[:, 0]
-    return int((counts * table.entries[:, 2]).sum()), table.n_out
-
-
 def slot_outputs(table, n_in: int) -> np.ndarray:
     """The output each of `n_in` values is added to under a row-sum
     table, -1 for a value no entry reads (gaps between buckets, the
@@ -1176,100 +1139,89 @@ def slot_outputs(table, n_in: int) -> np.ndarray:
     return idx
 
 
-def tail_index(data, txp, big, n_t: int, device) -> tuple:
-    """(index, outputs) for one `index_add_` that computes the transcript
-    tail (bucket sums, then each big transcript's rows summed): every slot
-    mapped straight to its small-bucket row or its big transcript, the
-    slots that no sum reads to a dump output after the last. Made once per
-    layout, like the kernel's tables."""
-    first = slot_outputs(txp, n_t)
-    n_small, n_out = data.row_space_s, data.row_space_s
-    out = first.copy()
-    if data.big_rows_pad:
-        second = slot_outputs(big, txp.n_out)
-        n_out += big.n_out
-        hi = first >= n_small
-        out[hi] = np.where(second[first[hi]] >= 0,
-                           n_small + second[first[hi]], -1)
-    out[out < 0] = n_out
-    return torch.as_tensor(out, device=device), n_out
+def tail_index(plan, n_t: int, device) -> torch.Tensor:
+    """The index of one `index_add_` that computes the transcript tail
+    (bucket sums, then each big transcript's rows summed, zero pad): every
+    slot mapped straight to its small-bucket row or its big transcript,
+    the slots that no sum reads to a dump output after the last. Made
+    once per layout, like the kernel's plan."""
+    out = slot_outputs(plan.table, n_t)
+    hi = out >= plan.first
+    rows = out[hi] - plan.first
+    group = np.searchsorted(plan.offsets, rows, side="right") - 1
+    out[hi] = np.where(rows < plan.offsets[-1], plan.first + group, -1)
+    out[out < 0] = plan.n_out
+    return torch.as_tensor(out, device=device)
+
+
+def l2_flush(device):
+    """A function that overwrites 128 MB, more than the card's 50 MB L2
+    cache, so that the next kernel reads its inputs from device memory."""
+    scrub = torch.empty(2**25, dtype=torch.float32, device=device)
+    return scrub.zero_
 
 
 def row_sums_vs_plain(data, values, device) -> dict:
-    """The row-sum kernel on the bench plan's tables (the transcript
-    layout, its big transcripts' second level, the read layout), f32 and
-    f64, alone and at 8 replicates, bit for bit against its plain version;
-    the m-step's two launches (both levels of the transcript tail) timed
-    against the torch sums they replaced, alone and at 8 replicates."""
+    """The row-sum kernel on the bench plan: the transcript tail's one
+    launch (bucket sums, big transcripts' second level, zero pad) and the
+    read layout's table, f32 and f64, alone and at 8 replicates, and
+    alone again after the batch, bit for bit against its plain version;
+    the tail timed against its bound and one `index_add_`, alone and at 8
+    replicates, its device time also with the L2 cache flushed before
+    each launch (as the m-step finds it)."""
     B = REPLICATES
     CR, L = data.p_a.chunk_rows, rs.LANES
-    txp, big, rd = (data.txp_sum_table, data.big_sum_table,
-                    data.read_sum_table)
+    tail, rd = data.tail_plan, data.read_sum_table.plan
     n_t, n_r = data.p_a.n_src * CR * L, data.p_a.n_dst * CR * L
     err = 0.0
-    for tag, table, n in (("txp", txp, n_t), ("read", rd, n_r)):
-        for shape, dtype in (((n,), torch.float32), ((B, n), torch.float32),
-                             ((n,), torch.float64)):
-            x = values(*shape).to(dtype)
-            got = rsm.row_sums_cuda(x, table)
-            err = max(err, bit_equal(f"row_sums {tag} {shape} {dtype}", got,
-                                     rsm.row_sums_reference(x, table)))
-            if tag == "txp" and data.big_rows_pad:
-                err = max(err, bit_equal(
-                    f"row_sums big {shape} {dtype}",
-                    rsm.row_sums_cuda(got, big),
-                    rsm.row_sums_reference(got, big)))
-
-    def tail(x):
-        sums = rsm.row_sums_cuda(x, txp)
-        return rsm.row_sums_cuda(sums, big) if data.big_rows_pad else sums
-
-    def tail_plain(x):
-        sums = rsm.row_sums_reference(x, txp)
-        return rsm.row_sums_reference(sums, big) if data.big_rows_pad else sums
+    for tag, plan, n in (("tail", tail, n_t), ("read", rd, n_r)):
+        for dtype in (torch.float32, torch.float64):
+            for shape in ((n,), (B, n), (n,)):
+                x = values(*shape).to(dtype)
+                want = rsm.plan_reference(x, plan)
+                for _ in range(2):
+                    err = max(err, bit_equal(
+                        f"row_sums {tag} {shape} {dtype}",
+                        rsm.row_sums_cuda(x, plan), want))
 
     # the library's one call for the same function: `index_add_` of every
     # slot into its output (atomic adds: timed and held close, not to bits)
-    idx, n_lib = tail_index(data, txp, big, n_t, device)
+    idx = tail_index(tail, n_t, device)
 
     def library(x):
-        return x.new_zeros((*x.shape[:-1], n_lib + 1)).index_add_(-1, idx, x)
+        return x.new_zeros((*x.shape[:-1], tail.n_out + 1)).index_add_(
+            -1, idx, x)[..., : tail.n_out]
 
-    def tail_out(x):
-        sums = rsm.row_sums_cuda(x, txp)
-        if not data.big_rows_pad:
-            return sums[..., : data.row_space_s]
-        return torch.cat([sums[..., : data.row_space_s],
-                          rsm.row_sums_cuda(sums, big)], dim=-1)
-
-    reads, writes = table_work(txp)
-    if data.big_rows_pad:
-        r2, w2 = table_work(big)
-        reads, writes = reads + r2, writes + w2
-    out = dict(tables=dict(txp_entries=len(txp.entries),
-                           big_entries=len(big.entries) if data.big_rows_pad
-                           else 0, read_entries=len(rd.entries),
-                           txp_outputs=txp.n_out, read_outputs=rd.n_out),
-               max_abs_err=err, launches_per_m_step=1 + int(
-                   bool(data.big_rows_pad)))
+    flush = l2_flush(device)
+    out = dict(plan=dict(tiles=len(tail.tiles), groups=len(tail.groups),
+                         values_read=tail.values_read, outputs=tail.n_out,
+                         read_tiles=len(rd.tiles)),
+               max_abs_err=err, launches_per_m_step=1)
     for tag, reps in (("single", 1), ("x8", B)):
         x = values(*((n_t,) if reps == 1 else (reps, n_t)))
-        want, lib = tail_out(x), library(x)[..., :n_lib]
+        want, lib = rsm.row_sums_cuda(x, tail), library(x)
         lib_err = float((lib - want).abs().max())
         assert lib_err <= 1e-4 * float(want.abs().max()), (
             f"index_add_ yardstick differs from the kernel by {lib_err}")
+
+        def cold():
+            flush()
+            rsm.row_sums_cuda(x, tail)
+
         m = dict(
-            ms=time_ms(lambda: tail(x), device),
-            device_ms=device_ms(lambda: tail(x), device),
-            plain_ms=time_ms(lambda: tail_plain(x), device, 2, 1),
+            ms=time_ms(lambda: rsm.row_sums_cuda(x, tail), device),
+            device_ms=device_ms(lambda: rsm.row_sums_cuda(x, tail), device),
+            device_ms_l2_flushed=device_ms(cold, device,
+                                           only="row_sums_kernel"),
+            plain_ms=time_ms(lambda: rsm.plan_reference(x, tail), device,
+                             2, 1),
             library_ms=time_ms(lambda: library(x), device),
             library_device_ms=device_ms(lambda: library(x), device),
             library_max_abs_err=lib_err,
-            torch_sums_ms=time_ms(lambda: torch_txp_sums(data, x), device),
-            torch_sums_device_ms=device_ms(lambda: torch_txp_sums(data, x),
-                                           device),
-            **bound(nbytes(txp.device_entries, big.device_entries)
-                    + 4 * reps * (reads + writes), reps * reads))
+            **bound(nbytes(tail.device_tiles, tail.device_groups)
+                    + x.element_size() * reps
+                    * (tail.values_read + tail.n_out),
+                    reps * tail.values_read))
         if tag == "single":
             out.update(m)
         else:
@@ -1327,9 +1279,9 @@ def phase_em_full_width(csr, R, T, device, tmp: Path, capture, fused: bool):
         if impl == "pallas":
             want["sorted_gather"] = m_steps + batched
         elif impl == "v4":
-            n_big, fused_run = capture.layout[n_layout]
+            _, fused_run = capture.layout[n_layout]
             assert fused_run == fused, (fused_run, fused)
-            want = v4_launches(m_steps + batched, fused, n_big > 0, batched)
+            want = v4_launches(m_steps + batched, fused, batched)
         assert launched == want, (impl, launched, want)
         assert np.isfinite(counts).all() and counts.shape == (T,)
         assert np.array_equal(read_quant(str(tmp / tag) + ".quant"), counts)
@@ -1459,7 +1411,7 @@ def phase_cli_e2e(R, T, device, tmp: Path, capture):
     assert impl == "v4", f"auto chose {impl}, expected v4"
     assert len(capture.layout) == n_layout + 1
     n_big, fused = capture.layout[-1]
-    assert launched == v4_launches(iters + 1, fused, n_big > 0), (
+    assert launched == v4_launches(iters + 1, fused), (
         launched, iters, n_big, fused)
     res = dict(
         R=R, T=T, records=n_alns, reads_kept=kept,
@@ -1935,12 +1887,12 @@ def main(argv=None) -> int:
         **also(arm4["replicate"], "replicate")))
     row = k234["row_sums"]
     kernels.append(entry(
-        "row_sums", row, measured_on="the transcript tail's launches of an "
-        "m-step (bucket sums, big transcripts' second level)",
+        "row_sums", row, measured_on="the transcript tail of an m-step, one "
+        "launch (bucket sums, big transcripts' second level, zero pad)",
         **device_times(row),
         **{k: row[k] for k in row
-           if k.startswith(("torch_sums", "tables", "launches_per",
-                            "library_max"))
+           if k.startswith(("plan", "launches_per", "library_max",
+                            "device_ms_l2"))
            or k.endswith("_8_replicates")}))
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("total", seconds=round(time.time() - t_start, 1))

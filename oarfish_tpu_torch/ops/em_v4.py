@@ -35,9 +35,10 @@ power-of-two rounding.
 
 Semantics match the reference serial EM (`em.rs:87-255`) exactly as
 `em_fast` does. The kernels are bit-equal to their plain versions. The
-glue's sums (the bucket row sums and the big-transcript second level) go
-through the row-sum kernel of `row_sums.py`, which adds each row in XLA's
-CPU order whatever the replicates around it: a replicate of a batch is
+glue's sums (the bucket row sums, the big-transcript second level and the
+zero pad, one launch an m-step: `EmV4Data.tail_plan`) go through the
+row-sum kernel of `row_sums.py`, which adds each row in XLA's CPU order
+whatever the replicates around it: a replicate of a batch is
 bit-equal to the same replicate alone, and the bucket sums equal the JAX
 package's. The second level adds row sums where the JAX package takes
 differences of a `cumsum`, and the routes' stages add in their own order,
@@ -76,7 +77,7 @@ from . import balance as _balance
 from . import plan_cache
 from .em import em_loop, finish_em, squarem_loop
 from .route_middle import route_middle
-from .row_sums import RowSumTable, bucket_table, row_sums, segment_table
+from .row_sums import RowSumPlan, RowSumTable, bucket_table, row_sums
 from .static_permute import (
     CH,
     LANES,
@@ -196,11 +197,14 @@ class EmV4Data:
         return bucket_table(*self.txp_buckets, self.device)
 
     @cached_property
-    def big_sum_table(self) -> RowSumTable:
-        """The second level: each big transcript's consecutive rows of
-        the big region, read out of the transcript layout's row sums."""
-        return segment_table(self.big_row_offsets.cpu().numpy(),
-                             self.row_space_s, self.device)
+    def tail_plan(self) -> RowSumPlan:
+        """The transcript tail as one launch: the small buckets' row sums,
+        each big transcript's consecutive rows of the big region added
+        again (the second level), zeros to `t_space`: the vector that
+        `t_out` takes."""
+        return RowSumPlan.make(self.txp_sum_table, n_out=self.t_space,
+                               first=self.row_space_s,
+                               offsets=self.big_row_offsets.cpu().numpy())
 
     @cached_property
     def read_sum_table(self) -> RowSumTable:
@@ -1084,19 +1088,10 @@ def _prev_slots(data: EmV4Data, prev: torch.Tensor) -> torch.Tensor:
 
 def _txp_tail(data: EmV4Data, inc_t: torch.Tensor) -> torch.Tensor:
     """Back glue: transcript-layout increments (`[n]` or `[B, n]`) -> curr
-    in t_space (row sums, big-transcript second level, output tile
-    permute)."""
-    lead = inc_t.shape[:-1]
-    sums = row_sums(inc_t, data.txp_sum_table)
-    parts = [sums[..., : data.row_space_s]]
-    n = data.row_space_s
-    if data.big_rows_pad:
-        # second level: each big transcript's consecutive row sums
-        parts.append(row_sums(sums, data.big_sum_table))
-        n += data.n_big
-    # pad positions route only zeros and stay zero every iteration
-    parts.append(inc_t.new_zeros((*lead, data.t_space - n)))
-    return data.t_out(torch.cat(parts, dim=-1))
+    in t_space: row sums, big-transcript second level and the zero pad
+    (pad positions route only zeros and stay zero every iteration) in one
+    launch, then the output tile permute."""
+    return data.t_out(row_sums(inc_t, data.tail_plan))
 
 
 def mult_slots(data: EmV4Data, multiplicity: torch.Tensor) -> torch.Tensor:
