@@ -7,11 +7,15 @@ needs one CUDA device and fails without it. It builds every hand-written
 kernel from the sources in this checkout, holds each against its plain
 PyTorch version on the card, and drives the port's main paths (bulk
 quantification of a transcriptome BAM; single-cell quantification of a
-CB-collated BAM) at full width through the entry points a user calls. One
+CB-collated BAM; raw reads against a transcriptome and against a genome;
+a genome BAM) at full width through the entry points a user calls. One
 JSON object per phase goes to standard output:
 
   env            card name and power limit, torch/CUDA versions, which
-                 host helpers were built natively (all of them must be)
+                 host helpers were built natively (all of them must be,
+                 one g++ each, all started together; the mapper and the
+                 projection engine loaded from the package's build
+                 directory)
   kernels        the five kernel sources built (one nvcc each, all started
                  together), with build seconds
   k1_vs_plain    sorted-gather kernel vs its plain version on the bench
@@ -72,6 +76,33 @@ JSON object per phase goes to standard output:
                  rounded to bf16 each m-step (must exceed the limit); the
                  device time of one dense m-step at the most populous
                  bucket's shape
+  raw_reads      a transcriptome at the size of
+                 `scripts/rawreads_gencode_bench.py`'s defaults (250,000
+                 transcripts, ~330 Mbp), in isoform families of three that
+                 share exons; 80,000 reads of 10,000 expressed transcripts,
+                 1 % substitutions, through
+                 the CLI with its defaults on the card: `--annotated` with
+                 `--index-out`, then `--index` (`.quant` and
+                 `.ambig_info.tsv` byte-equal to the first run), then
+                 `--index --em-impl segsum` (L1/R < 2e-3 against the
+                 second); per run wall time, the mode's logged phase seconds
+                 (index, map), the EM formulation, iterations, EM seconds
+                 and their share of the wall, alignments, threads,
+                 launches; the mass within 1e-5 of the reads kept; each
+                 sorted gather of the run bit-equal to its plain version
+                 on the run's own inputs
+  genome_reads   a genome at `scripts/genome_gencode_bench.py`'s defaults
+                 (125,000 two-isoform genes, 25 chromosomes, ~0.9 Gbp;
+                 80,000 reads) through `--reads --genome --annotation`:
+                 from the FASTA with `--index-out`, then from that index
+                 (outputs byte-equal), then from that index with
+                 `--em-impl segsum` (L1/R < 2e-3 against the second); the
+                 same fields and checks
+  genome_bam     the same reads as a name-collated genome BAM with their
+                 true spliced alignments through `--genome-alignments
+                 --annotation --genome-fasta` (rescue on); the same fields
+                 and checks, its set-up phases (annotation, g2t index,
+                 rescue database, flat g2t) logged by the driver
   em_breakdown   only with --breakdown: the `pallas` and the `v4` m-step
                  alone and the batched v4 m-step of 8 replicates, and the
                  loop with and without the host's per-iteration read of the
@@ -90,12 +121,15 @@ m-step per iteration plus the final one, per run
 and per batch of bootstrap replicates: a batch runs to its slowest
 replicate's count, all replicates in the same launches, which are counted
 a second time as launches of the replicate-axis arms. The single-cell
-runs launch none of these kernels, and that is checked too.
+runs launch none of these kernels, and that is checked too. The raw-read
+and genome runs end in the bulk tail: one sorted gather per m-step where
+it takes `pallas` (as it does at their sizes), none under `segsum`.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import os
@@ -116,7 +150,8 @@ import torch
 
 from oarfish_tpu_torch.cli import build_parser, main as cli_main, to_args
 from oarfish_tpu_torch.config import Args, resolve_filters
-from oarfish_tpu_torch.host import fmt_native, native
+from oarfish_tpu_torch.genome import project_native
+from oarfish_tpu_torch.host import fmt_native, mapper, native
 from oarfish_tpu_torch.host.filters import DiscardTable
 from oarfish_tpu_torch.host.packer import pack_bam_fast
 from oarfish_tpu_torch.host.store import (
@@ -127,7 +162,8 @@ from oarfish_tpu_torch.host.store import (
 from oarfish_tpu_torch.kernels import build as kernel_build
 from oarfish_tpu_torch.models import coverage as covmodel_host
 from oarfish_tpu_torch.models import coverage_torch as covmodel_device
-from oarfish_tpu_torch.ops import balance, em_dense, em_v4, permute_plan
+from oarfish_tpu_torch.ops import balance, em_dense, em_fast, em_v4
+from oarfish_tpu_torch.ops import permute_plan
 from oarfish_tpu_torch.ops import route_middle as rm
 from oarfish_tpu_torch.ops import route_stage as rs
 from oarfish_tpu_torch.ops import row_sums as rsm
@@ -154,6 +190,18 @@ SC_CELLS, SC_READS_PER_CELL, SC_TXPS = 100_000, 50, 30_000
 # and a dense run with `prev` rounded to bf16 (a control run of the phase)
 SC_DENSE_VS_SEGSUM = 1e-6
 BCLEN = 16  # barcode length
+# the raw-read phase: `scripts/rawreads_gencode_bench.py`'s defaults
+RR_TXPS, RR_READS, RR_EXPRESSED = 250_000, 80_000, 10_000
+# the genome phases: `scripts/genome_gencode_bench.py`'s defaults, the
+# read count of the reference's human-scale claim; the gene model (A =
+# exons 1+2+3, B = exons 1+3) is the bench's
+G_GENES, G_CHROMS, G_READS, G_SAMPLE_GENES = 125_000, 25, 80_000, 5_000
+E1, E2, E3, GAP = 1200, 260, 1200, 1500
+GENE_SPAN = E1 + E2 + E3 + 3 * GAP
+DNA = np.frombuffer(b"ACGT", np.uint8)
+# two EM formulations on the card, f32, against each other: v4 against
+# segsum and pallas (em_full_width), pallas against segsum (raw_reads)
+L1_OVER_R_LIMIT = 2e-3
 EM_DENOM_THRESH = 1e-30
 
 # name -> (wrapper module, its launch counter, CUDA source, the Pallas call
@@ -470,6 +518,225 @@ def build_sc_bam(path, C, reads_per_cell, T, seed=0, mean_k=2,
 # helpers
 # ---------------------------------------------------------------------------
 
+
+# ---------------------------------------------------------------------------
+# the raw-read and genome worlds: generators copied from
+# `scripts/rawreads_gencode_bench.py` and `scripts/genome_gencode_bench.py`
+# (their defaults; the genome one also writes each read's true alignment)
+# ---------------------------------------------------------------------------
+
+def build_transcriptome(d: Path, rng, n_txps: int):
+    """`txps.fa`: isoform families of three over random bases, as the
+    CPU tests make them (all four exons; exon 2 skipped; exon 3 skipped;
+    the last family cut to `n_txps`), so that a read inside shared exons
+    maps to two or three transcripts. The full isoform's length is
+    log-normal, its exons split by Dirichlet(4, 4, 4, 4) fractions; the
+    transcripts' mean is then ~1.3 kb as the raw-read bench's (~330 Mbp at
+    250,000 transcripts)."""
+    n_fam = (n_txps + 2) // 3
+    full = np.clip(rng.lognormal(7.22, 0.55, n_fam), 400, 14_000)
+    exons = np.maximum((rng.dirichlet(np.full(4, 4.0), n_fam)
+                        * full[:, None]).astype(np.int64), 30)
+    keep = (0, 1, 2, 3), (0, 2, 3), (0, 1, 3)
+    lens = np.stack([exons[:, k].sum(1) for k in keep], 1).reshape(-1)
+    lens = lens[:n_txps]
+    offs = np.zeros(n_txps + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    unique = DNA[rng.integers(0, 4, int(exons.sum()))]
+    ex_offs = np.zeros(exons.size + 1, np.int64)
+    np.cumsum(exons.reshape(-1), out=ex_offs[1:])
+    blob = np.empty(int(offs[-1]), np.uint8)
+    with open(d / "txps.fa", "wb") as fh:
+        for i in range(n_txps):
+            f, k = divmod(i, 3)
+            blob[offs[i]:offs[i + 1]] = np.concatenate(
+                [unique[ex_offs[4 * f + e]:ex_offs[4 * f + e + 1]]
+                 for e in keep[k]])
+            fh.write(b">G%06d%s\n" % (f, b"abc"[k:k + 1]))
+            fh.write(blob[offs[i]:offs[i + 1]].tobytes() + b"\n")
+    return blob, offs, lens
+
+
+def simulate_raw_reads(d: Path, rng, blob, offs, lens, n_reads: int,
+                       n_expressed: int) -> np.ndarray:
+    """`reads.fa`: fragments of Dirichlet(0.8)-weighted expressed
+    transcripts with 1 % substitutions; returns the true counts."""
+    expr = rng.choice(len(lens), size=n_expressed, replace=False)
+    p = rng.dirichlet(np.ones(n_expressed) * 0.8)
+    picks = expr[rng.choice(n_expressed, size=n_reads, p=p)]
+    truth = np.zeros(len(lens), np.int64)
+    with open(d / "reads.fa", "wb") as fh:
+        for rid, t in enumerate(picks):
+            t = int(t)
+            L = int(lens[t])
+            span = int(rng.integers(min(400, L // 2), L + 1))
+            pos = int(rng.integers(0, L - span + 1))
+            frag = blob[offs[t] + pos:offs[t] + pos + span].copy()
+            m = rng.random(span) < 0.01
+            nm = int(m.sum())
+            if nm:
+                frag[m] = DNA[rng.integers(0, 4, nm)]
+            truth[t] += 1
+            fh.write(b">r%d\n" % rid + frag.tobytes() + b"\n")
+    return truth
+
+
+def write_fasta_seq(fh, name: str, seq: np.ndarray, width: int = 80):
+    """An 80-column FASTA record of a uint8 base array."""
+    fh.write(b">" + name.encode() + b"\n")
+    n = len(seq)
+    nrows = (n + width - 1) // width
+    pad = nrows * width - n
+    mat = np.empty((nrows, width + 1), np.uint8)
+    mat[:, width] = ord("\n")
+    padded = np.empty(nrows * width, np.uint8)
+    padded[:n] = seq
+    if pad:
+        padded[n:] = ord(" ")
+    mat[:, :width] = padded.reshape(nrows, width)
+    body = mat.reshape(-1).tobytes()
+    if pad:
+        body = body[: -(pad + 1)] + b"\n"
+    fh.write(body)
+
+
+def gene_coords(j: int):
+    """Exons (start, end), 1-based inclusive, of gene j of a chromosome."""
+    base = j * GENE_SPAN + GAP
+    s1, e1 = base + 1, base + E1
+    base += E1 + GAP
+    s2, e2 = base + 1, base + E2
+    base += E2 + GAP
+    s3, e3 = base + 1, base + E3
+    return (s1, e1), (s2, e2), (s3, e3)
+
+
+def build_genome_world(d: Path, rng, n_genes: int, n_chroms: int,
+                       sample_genes):
+    """`genome.fa` and `anno.gtf`: n_genes two-isoform genes (A = exons
+    1+2+3, B = exons 1+3) over n_chroms chromosomes of random bases.
+    Returns the chromosomes' (names, lengths) and, for the sampled genes'
+    isoforms, name -> (chromosome index, exons, sequence)."""
+    per_chrom = (n_genes + n_chroms - 1) // n_chroms
+    sampled = {}
+    for g in sample_genes:
+        sampled.setdefault(int(g) // per_chrom, []).append(int(g))
+    isoforms, names, lengths = {}, [], []
+    with open(d / "anno.gtf", "w") as gtf, open(d / "genome.fa", "wb") as fa:
+        for c in range(n_chroms):
+            g_lo = c * per_chrom
+            ng = min(n_genes, g_lo + per_chrom) - g_lo
+            if ng <= 0:
+                break
+            chrom = f"chr{c + 1}"
+            clen = ng * GENE_SPAN + GAP
+            names.append(chrom)
+            lengths.append(clen)
+            genome = DNA[rng.integers(0, 4, clen)]
+            write_fasta_seq(fa, chrom, genome)
+            lines = []
+            for j in range(ng):
+                ex = gene_coords(j)
+                a, b = f"G{g_lo + j:06d}A", f"G{g_lo + j:06d}B"
+                for nm, exons in ((a, ex), (b, (ex[0], ex[2]))):
+                    for s, e in exons:
+                        lines.append(f"{chrom}\tt\texon\t{s}\t{e}\t.\t+\t.\t"
+                                     f'transcript_id "{nm}";')
+            gtf.write("\n".join(lines) + "\n")
+            for g in sampled.get(c, ()):
+                ex = gene_coords(g - g_lo)
+                for nm, exons in ((f"G{g:06d}A", ex),
+                                  (f"G{g:06d}B", (ex[0], ex[2]))):
+                    seq = np.concatenate([genome[s - 1:e] for s, e in exons])
+                    isoforms[nm] = (c, exons, seq)
+            del genome
+    return names, lengths, isoforms
+
+
+BAM_BASE_CODE = np.zeros(256, np.uint8)
+for _i, _b in enumerate(b"=ACMGRSVTWYHKDBN"):
+    BAM_BASE_CODE[_b] = _i
+
+
+def _reg2bin(beg: int, end: int) -> int:
+    end -= 1
+    for shift, off in ((14, 4681), (17, 585), (20, 73), (23, 9), (26, 1)):
+        if beg >> shift == end >> shift:
+            return off + (beg >> shift)
+    return 0
+
+
+def bam_record(name: bytes, ref_id: int, pos: int, cigar, seq: np.ndarray,
+               score: int) -> bytes:
+    """One mapped BAM record: `cigar` as [(length, op code)], `seq` uint8
+    bases, an AS:i tag; no qualities."""
+    codes = BAM_BASE_CODE[seq]
+    if len(codes) % 2:
+        codes = np.append(codes, 0)
+    packed = (codes[0::2] << 4) | codes[1::2]
+    ref_end = pos + sum(n for n, op in cigar if op in (0, 2, 3, 7, 8))
+    rname = name + b"\x00"
+    body = (
+        struct.pack("<iiBBHHHiiii", ref_id, pos, len(rname), 60,
+                    _reg2bin(pos, ref_end), len(cigar), 0, len(seq), -1, -1,
+                    0)
+        + rname
+        + np.array([(n << 4) | op for n, op in cigar], "<u4").tobytes()
+        + packed.astype(np.uint8).tobytes() + b"\xff" * len(seq)
+        + b"ASi" + struct.pack("<i", score)
+    )
+    return struct.pack("<i", len(body)) + body
+
+
+def simulate_genome_reads(d: Path, rng, isoforms, chroms, n_reads: int,
+                          threads: int = 8) -> int:
+    """`reads.fa` (Dirichlet(0.8) over the sampled isoforms, fragments with
+    1 % substitutions, as the genome bench makes them) and `g.bam`, the
+    same reads as a name-collated genome BAM with their true spliced
+    alignments (M blocks, N introns) and AS = span - 2 x substitutions.
+    Returns the BAM's size in bytes."""
+    names = sorted(isoforms)
+    p = rng.dirichlet(np.ones(len(names)) * 0.8)
+    picks = rng.choice(len(names), size=n_reads, p=p)
+    records = []
+    with open(d / "reads.fa", "wb") as fh:
+        for rid, k in enumerate(picks):
+            chrom, exons, seq = isoforms[names[int(k)]]
+            span = int(rng.integers(min(400, len(seq) // 2), len(seq) + 1))
+            pos = int(rng.integers(0, len(seq) - span + 1))
+            frag = seq[pos:pos + span].copy()
+            m = rng.random(span) < 0.01
+            nm = int(m.sum())
+            if nm:
+                frag[m] = DNA[rng.integers(0, 4, nm)]
+            fh.write(b">r%d\n" % rid + frag.tobytes() + b"\n")
+            # the fragment's genomic blocks through the exon chain
+            blocks, t_off = [], 0
+            for s, e in exons:
+                a, b = max(pos, t_off), min(pos + span, t_off + e - s + 1)
+                if a < b:
+                    blocks.append((s - 1 + a - t_off, s - 1 + b - t_off))
+                t_off += e - s + 1
+            cigar = [(blocks[0][1] - blocks[0][0], 0)]
+            for (_, e0), (s1, e1) in zip(blocks, blocks[1:]):
+                cigar += [(s1 - e0, 3), (e1 - s1, 0)]
+            records.append(bam_record(b"r%d" % rid, chrom, blocks[0][0],
+                                      cigar, frag, span - 2 * nm))
+    text = b"@HD\tVN:1.6\tSO:unsorted\n@PG\tID:minimap2\tPN:minimap2\n"
+    hdr = bytearray(b"BAM\x01" + struct.pack("<i", len(text)) + text
+                    + struct.pack("<i", len(chroms[0])))
+    for name, length in zip(*chroms):
+        nb = name.encode() + b"\x00"
+        hdr += struct.pack("<i", len(nb)) + nb + struct.pack("<i", length)
+    with open(d / "g.bam", "wb") as fh, ThreadPoolExecutor(threads) as pool:
+        _compress_payload(fh, np.frombuffer(bytes(hdr), np.uint8), pool)
+        for lo in range(0, len(records), 20_000):
+            _compress_payload(fh, np.frombuffer(
+                b"".join(records[lo:lo + 20_000]), np.uint8), pool)
+        fh.write(BGZF_EOF)
+    return (d / "g.bam").stat().st_size
+
+
 def time_ms(fn, device, repeats: int = 10, batch: int = 10) -> float:
     """Median over `repeats` samples of the time of one `fn()` in ms, each
     sample a run of `batch` calls between two CUDA events."""
@@ -532,6 +799,8 @@ class EmLogCapture(logging.Handler):
     ROUTING = re.compile(r"v4 routing built in ([0-9.]+)s")
     LAYOUT = re.compile(r"v4 layout: (\d+) big transcripts, (\w+) middle")
     SC_PHASE = re.compile(r"phase (sc\.\w+) ([0-9.]+)")
+    MODE_PHASE = re.compile(r"phase ((?:rawreads|genome)\.[\w.]+) ([0-9.]+)")
+    RECORDS = re.compile(r"Total number of alignment records : (\d+)")
     SC_PARSED = re.compile(r"parsed (\d+) cells \((\d+) with no surviving "
                            r"alignments, (\d+) reads kept\)")
     SC_BUCKET = re.compile(r"sc bucket \((\d+), (\d+), (\d+)\): (\d+) cells, "
@@ -546,6 +815,8 @@ class EmLogCapture(logging.Handler):
         self.routing = []
         self.layout = []
         self.sc = []
+        self.mode_phases = []
+        self.records = []
         self.cache_hits = 0
         self.warnings = []
 
@@ -567,6 +838,12 @@ class EmLogCapture(logging.Handler):
         m = self.LAYOUT.search(msg)
         if m:
             self.layout.append((int(m.group(1)), m.group(2) == "fused"))
+        m = self.MODE_PHASE.search(msg)
+        if m:
+            self.mode_phases.append((m.group(1), float(m.group(2))))
+        m = self.RECORDS.search(msg)
+        if m:
+            self.records.append(int(m.group(1)))
         for pattern in (self.SC_PHASE, self.SC_PARSED, self.SC_BUCKET):
             m = pattern.search(msg)
             if m:
@@ -596,23 +873,38 @@ def phase_env() -> str:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    host_native = {
-        "bam_decoder": native.available(),
-        "fmt": fmt_native.get_lib() is not None,
-        "coverage": _get_cov_lib() is not None,
-        "covmodel": covmodel_host._get_lib() is not None,
-        "euler_color": permute_plan._get_color_lib() is not None,
-        "balance": balance.available(),
+    loaders = {
+        "bam_decoder": native.get_lib,
+        "fmt": fmt_native.get_lib,
+        "coverage": _get_cov_lib,
+        "covmodel": covmodel_host._get_lib,
+        "euler_color": permute_plan._get_color_lib,
+        "balance": balance.get_lib,
+        "mapper": mapper.get_lib,
+        "projection": project_native.get_lib,
     }
+    # one g++ per library, all started together
+    t0 = time.time()
+    with ThreadPoolExecutor(len(loaders)) as pool:
+        libs = dict(zip(loaders, pool.map(lambda f: f(), loaders.values())))
+    host_native = {k: lib is not None for k, lib in libs.items()}
+    # the mapper and the projection engine come from this checkout's build
+    # directory, never from beside the shared sources
+    where = {k: Path(libs[k]._name).parent.name
+             for k in ("mapper", "projection") if libs[k] is not None}
     emit(
         "env", card=smi, python=sys.version.split()[0],
         torch=torch.__version__, cuda=torch.version.cuda,
-        host_native=host_native,
+        host_native=host_native, host_build_wall_s=round(time.time() - t0, 2),
         host_build_seconds=dict(kernel_build.build_seconds),
+        host_library_dirs=where,
     )
     missing = [k for k, ok in host_native.items() if not ok]
     if missing:
         raise RuntimeError(f"native host libraries did not build: {missing}")
+    for k in where:
+        assert (Path(libs[k]._name).resolve().parent
+                == kernel_build.BUILD_DIR.resolve()), (k, libs[k]._name)
     return smi
 
 
@@ -1324,7 +1616,8 @@ def phase_em_full_width(csr, R, T, device, tmp: Path, capture, fused: bool):
     assert np.array_equal(c1, counts["v4_again"]), "two v4 runs differ"
     l1 = {tag: float(np.abs(c1 - counts[tag]).sum() / R)
           for tag in ("segsum", "pallas")}
-    assert max(l1.values()) < 2e-3, f"v4 vs segsum / pallas L1/R = {l1}"
+    assert max(l1.values()) < L1_OVER_R_LIMIT, (
+        f"v4 vs segsum / pallas L1/R = {l1}")
     import pyarrow.parquet as pq
 
     reps = pq.read_table(str(tmp / "v4") + ".infreps.pq")
@@ -1609,6 +1902,239 @@ def phase_single_cell(device, tmp: Path, capture) -> dict:
     return res
 
 
+
+# the set-up phases a run logs in sequence (genome-read mode logs its
+# annotation and g2t phases as overlapped with the index build)
+SETUP_PHASES = {
+    "reads": ("rawreads.index", "genome.index", "genome.aux"),
+    "genome_bam": ("genome.annot", "genome.g2t", "genome.rescue",
+                   "genome.flatg2t"),
+}
+
+
+@contextlib.contextmanager
+def recording_k1():
+    """Keep the inputs and the output of every sorted-gather call the EM
+    makes while the block runs, so that each launch of a run can be held
+    afterwards against the plain version on the same inputs."""
+    calls = []
+    real = em_fast.gather_rows
+
+    def record(table2d, base, lane, use_hi):
+        out = real(table2d, base, lane, use_hi)
+        calls.append((table2d, base, lane, use_hi, out))
+        return out
+
+    em_fast.gather_rows = record
+    try:
+        yield calls
+    finally:
+        em_fast.gather_rows = real
+
+
+def k1_calls_equal_plain(calls) -> dict:
+    """Each recorded launch's output bit for bit against the plain version
+    on its own inputs (the run's table of each m-step and its plan)."""
+    err = 0.0
+    for tab, base, lane, use_hi, out in calls:
+        err = max(err, bit_equal(
+            "sorted_gather in the run", out,
+            sg.gather_rows_reference(tab, base, lane, use_hi)))
+    tab, base = calls[0][:2]
+    return dict(calls=len(calls), n_rows=int(base.shape[0]),
+                table_rows=int(tab.shape[-2]), dtype=str(tab.dtype),
+                bit_equal=True, max_abs_err=err)
+
+
+def run_mode(argv, out: Path, device, capture, setup="reads"):
+    """One run of the CLI in a raw-read or genome mode on the card with
+    its defaults. Returns (its line, the counts of `.quant`, the reads
+    kept): wall seconds, the mode's logged phase seconds, what the EM
+    formulation resolved to, iterations, EM seconds and their share of the
+    wall (the card's busy share at most), alignments, threads, launches,
+    which must be exact (per m-step one sorted gather under `pallas`, the
+    v4 counts under `v4`, none under `segsum`), every sorted gather of the
+    run bit-equal to its plain version on the run's own inputs, and the
+    mass gate."""
+    n_em, n_auto, n_layout = (len(capture.em), len(capture.auto),
+                              len(capture.layout))
+    n_phase, n_rec, warn0 = (len(capture.mode_phases), len(capture.records),
+                             len(capture.warnings))
+    with recording_k1() as k1_calls:
+        reset_launch_counts()
+        t0 = time.time()
+        rc = cli_main([*argv, "-o", str(out)])
+        torch.cuda.synchronize(device)
+        wall = time.time() - t0
+        launched = launch_counts()
+    assert rc == 0
+    assert not capture.warnings[warn0:], capture.warnings[warn0:]
+    (impl, iters, em_s), = capture.em[n_em:]
+    want = dict.fromkeys(KERNELS, 0)
+    if impl == "pallas":
+        want["sorted_gather"] = iters + 1
+    elif impl == "v4":
+        assert len(capture.layout) == n_layout + 1
+        want = v4_launches(iters + 1, capture.layout[-1][1])
+    assert launched == want, (impl, iters, launched, want)
+    assert len(k1_calls) == launched["sorted_gather"], len(k1_calls)
+    k1 = k1_calls_equal_plain(k1_calls) if k1_calls else None
+    del k1_calls
+    for ext in (".quant", ".ambig_info.tsv", ".meta_info.json"):
+        assert Path(str(out) + ext).stat().st_size > 0, ext
+    counts = read_quant(str(out) + ".quant")
+    assert np.isfinite(counts).all() and (counts >= 0).all()
+    meta = json.loads(Path(str(out) + ".meta_info.json").read_text())
+    kept = int(meta["discard_table"]["valid_best_aln"])
+    mass_err = abs(counts.sum() - kept) / kept
+    assert mass_err < 1e-5, f"mass {counts.sum()} vs {kept} reads kept"
+    phases = dict(capture.mode_phases[n_phase:])
+    # set-up: the index build or load (with the g2t index and the rescue
+    # blob in genome-read mode), or the annotation, g2t index, rescue
+    # database and flat g2t of genome-BAM mode; alignment: mapping (and
+    # projection), or the genome BAM's parse and projection; rest: the
+    # EM's layout, digests and writing
+    setup_s = sum(phases.get(k, 0.0) for k in SETUP_PHASES[setup])
+    aln_s = float(meta["alignment_time"]["seconds"])
+    line = dict(
+        wall_s=round(wall, 3), phases_s=phases, setup_s=round(setup_s, 3),
+        alignment_s=round(aln_s, 3),
+        rest_s=round(wall - setup_s - aln_s - em_s, 3),
+        em_impl=impl, auto=capture.auto[n_auto:] == [impl],
+        iterations=iters, em_s=em_s, em_share_of_wall=em_s / wall,
+        alignments=capture.records[n_rec], reads_kept=kept,
+        threads=meta["threads"], launches=launched,
+        k1_launches=launched["sorted_gather"], k1_vs_plain=k1,
+        mass_rel_err=mass_err)
+    return line, counts, kept
+
+
+def ambiguous_reads(prefix: Path) -> int:
+    """Reads of a run that its `.ambig_info.tsv` counts at more than one
+    transcript (the reads kept less the sum of its unique column)."""
+    rows = np.loadtxt(str(prefix) + ".ambig_info.tsv", skiprows=1, ndmin=2)
+    meta = json.loads(Path(str(prefix) + ".meta_info.json").read_text())
+    return int(meta["discard_table"]["valid_best_aln"] - rows[:, 0].sum())
+
+
+def same_files(a: Path, b: Path, exts=(".quant", ".ambig_info.tsv")):
+    for ext in exts:
+        assert (Path(str(a) + ext).read_bytes()
+                == Path(str(b) + ext).read_bytes()), (a, b, ext)
+    return True
+
+
+def phase_raw_reads(device, tmp: Path, capture):
+    """Raw reads against a transcriptome at the raw-read bench's scale:
+    the CLI with its defaults on the card, building the index from the
+    FASTA (and writing it), then on that index (`.quant` and
+    `.ambig_info.tsv` byte-equal), then on that index with `--em-impl
+    segsum` (L1/R against the index run). Returns (the phase's line,
+    launches per kernel in the phase)."""
+    d = tmp / "raw_reads"
+    d.mkdir()
+    rng = np.random.default_rng(1)
+    t0 = time.time()
+    blob, offs, lens = build_transcriptome(d, rng, RR_TXPS)
+    truth = simulate_raw_reads(d, rng, blob, offs, lens, RR_READS,
+                               RR_EXPRESSED)
+    del blob
+    gen_s = time.time() - t0
+    reads = ["--reads", str(d / "reads.fa"), "--seq-tech", "ont-cdna"]
+    idx = d / "txps.otmi"
+    fasta, c_fasta, kept = run_mode(
+        reads + ["--annotated", str(d / "txps.fa"), "--index-out", str(idx)],
+        d / "fasta", device, capture)
+    index, c_index, _ = run_mode(reads + ["--index", str(idx)], d / "index",
+                                 device, capture)
+    same = same_files(d / "fasta", d / "index")
+    segsum, c_segsum, _ = run_mode(
+        reads + ["--index", str(idx), "--em-impl", "segsum"], d / "segsum",
+        device, capture)
+    assert segsum["em_impl"] == "segsum"
+    l1 = float(np.abs(c_segsum - c_index).sum() / kept)
+    assert l1 < L1_OVER_R_LIMIT, f"segsum vs the index run: L1/R = {l1}"
+    # the isoform families leave the EM reads to share out
+    ambiguous = ambiguous_reads(d / "fasta")
+    assert ambiguous > 0
+    res = dict(
+        T=RR_TXPS, transcriptome_mbp=round(int(offs[-1]) / 1e6, 1),
+        reads=RR_READS, expressed=RR_EXPRESSED, world_build_s=round(gen_s, 2),
+        index_mb=round(idx.stat().st_size / 2**20, 1),
+        fasta=fasta, index=index, segsum=segsum,
+        index_run_byte_equal=same, ambiguous_reads=ambiguous,
+        l1_over_R_segsum_vs_index=l1, l1_over_R_limit=L1_OVER_R_LIMIT,
+        pearson_vs_truth=float(np.corrcoef(c_fasta, truth)[0, 1]))
+    emit("raw_reads", **res)
+    shutil.rmtree(d)
+    launches = {k: sum(r["launches"][k] for r in (fasta, index, segsum))
+                for k in KERNELS}
+    return res, launches
+
+
+def phase_genome(device, tmp: Path, capture):
+    """Raw reads against a genome at the genome bench's scale (`--reads
+    --genome --annotation`), from the FASTA (writing the index), then
+    from that index (outputs byte-equal), then from that index with
+    `--em-impl segsum` (L1/R against the index run); then the same reads
+    as a genome BAM with their true alignments (`--genome-alignments`,
+    rescue on through `--genome-fasta`). Returns (the two phases' lines,
+    launches per kernel in each)."""
+    d = tmp / "genome"
+    d.mkdir()
+    rng = np.random.default_rng(1)
+    t0 = time.time()
+    sample = rng.choice(G_GENES, size=G_SAMPLE_GENES, replace=False)
+    *chroms, isoforms = build_genome_world(d, rng, G_GENES, G_CHROMS, sample)
+    bam_bytes = simulate_genome_reads(d, rng, isoforms, chroms, G_READS)
+    del isoforms
+    gen_s = time.time() - t0
+    genome_mbp = round(sum(chroms[1]) / 1e6, 1)
+    anno = ["--annotation", str(d / "anno.gtf")]
+    reads = ["--reads", str(d / "reads.fa"), "--seq-tech", "ont-cdna", *anno]
+    gidx = d / "genome.otmi"
+    fasta, c_fasta, _ = run_mode(
+        reads + ["--genome", str(d / "genome.fa"), "--index-out", str(gidx)],
+        d / "fasta", device, capture)
+    index, c_index, kept_reads = run_mode(
+        reads + ["--genome", str(gidx)], d / "index", device, capture)
+    same = same_files(d / "fasta", d / "index")
+    segsum, c_segsum, _ = run_mode(
+        reads + ["--genome", str(gidx), "--em-impl", "segsum"],
+        d / "segsum", device, capture)
+    assert segsum["em_impl"] == "segsum"
+    l1 = float(np.abs(c_segsum - c_index).sum() / kept_reads)
+    assert l1 < L1_OVER_R_LIMIT, f"segsum vs the index run: L1/R = {l1}"
+    ambiguous = ambiguous_reads(d / "fasta")
+    assert ambiguous > 0
+    res_reads = dict(
+        genes=G_GENES, isoforms=2 * G_GENES, chroms=len(chroms[0]),
+        genome_mbp=genome_mbp, reads=G_READS, sampled_genes=G_SAMPLE_GENES,
+        world_build_s=round(gen_s, 2),
+        index_mb=round(gidx.stat().st_size / 2**20, 1),
+        fasta=fasta, index=index, segsum=segsum, index_run_byte_equal=same,
+        ambiguous_reads=ambiguous,
+        l1_over_R_segsum_vs_index=l1, l1_over_R_limit=L1_OVER_R_LIMIT)
+    emit("genome_reads", **res_reads)
+    gidx.unlink()
+
+    bam, c_bam, kept = run_mode(
+        ["--genome-alignments", str(d / "g.bam"), *anno, "--genome-fasta",
+         str(d / "genome.fa")], d / "bam", device, capture,
+        setup="genome_bam")
+    res_bam = dict(
+        reads=G_READS, genome_mbp=genome_mbp,
+        bam_mb=round(bam_bytes / 2**20, 1), run=bam,
+        ambiguous_reads=ambiguous_reads(d / "bam"),
+        l1_over_R_vs_genome_reads=float(np.abs(c_bam - c_fasta).sum()
+                                        / kept))
+    emit("genome_bam", **res_bam)
+    shutil.rmtree(d)
+    return ((res_reads, res_bam),
+            ({k: sum(r["launches"][k] for r in (fasta, index, segsum))
+              for k in KERNELS}, bam["launches"]))
+
+
 def phase_covmodel_device_vs_host(bam: Path, argv, kept: int, device) -> dict:
     """The coverage model of the CLI run's own store: `models/coverage_torch`
     on the card against the native host pass, rtol 1e-12 on the per-bin
@@ -1805,14 +2331,30 @@ def main(argv=None) -> int:
             fused=k234["plan"]["fused_middle"])
         cli, launches_cli = phase_cli_e2e(R, T, device, tmp, capture)
         phase_single_cell(device, tmp, capture)
+        raw, launches_raw = phase_raw_reads(device, tmp, capture)
+        (greads, gbam), (launches_greads, launches_gbam) = phase_genome(
+            device, tmp, capture)
         if ns.breakdown:
             phase_em_breakdown(csr, T, device, ns.profile_dir)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    by_path = {"em_full_width": launches_em, "cli_e2e": launches_cli,
+               "raw_reads": launches_raw, "genome_reads": launches_greads,
+               "genome_bam": launches_gbam}
+    # the raw-read and genome runs end in the same tail: at their sizes it
+    # takes `pallas` (each run's count was checked against its iterations)
+    for path in ("raw_reads", "genome_reads", "genome_bam"):
+        if by_path[path]["sorted_gather"] == 0:
+            raise AssertionError(f"{path} never launched sorted_gather")
+    # every sorted gather of those runs was held against its plain version
+    mode_runs = [raw["fasta"], raw["index"], raw["segsum"], greads["fasta"],
+                 greads["index"], greads["segsum"], gbam["run"]]
+    k1_mode_err = max(r["k1_vs_plain"]["max_abs_err"] for r in mode_runs
+                      if r["k1_vs_plain"] is not None)
+
     def entry(name, measured, **extra):
         _, _, source, replaces = KERNELS[name]
-        total = launches_em[name] + launches_cli[name]
         # the CLI runs draw no bootstrap replicates: the arms are launched
         # by the 8 replicates of `em_full_width`
         paths = (launches_em,) if name in ARMS else (launches_em, launches_cli)
@@ -1822,9 +2364,8 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda",
             "source": f"oarfish_tpu_torch/csrc/{source}",
             "replaces": f"{JAX_PACKAGE}/{replaces}",
-            "launches": total,
-            "launches_by_path": {"em_full_width": launches_em[name],
-                                 "cli_e2e": launches_cli[name]},
+            "launches": sum(path[name] for path in by_path.values()),
+            "launches_by_path": {k: v[name] for k, v in by_path.items()},
             **{k: measured[k] for k in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by", "library_ms")},
             **extra,
@@ -1845,7 +2386,7 @@ def main(argv=None) -> int:
     kernels = [
         entry("sorted_gather",
               dict(k1, max_abs_err=max(
-                  k1["max_abs_err"],
+                  k1["max_abs_err"], k1_mode_err,
                   cli["pallas_run"]["k1_plan"]["max_abs_err"])),
               **device_times(k1), ms_8_replicates=k1["ms_b8"],
               bound_ms_8_replicates=k1["bound_ms_b8"]),

@@ -3,12 +3,15 @@
 Counterpart of the JAX package's `cli.py`: the reference's flag surface
 (`src/prog_opts.rs:250-566`) and mode dispatch (`src/main.rs:319-485`)
 with the same flag names, defaults, filter-group overlay semantics and
-input-mode exclusivity rules, plus `--device`. Transcriptome-BAM bulk
-mode and single-cell mode (`--single-cell`) are ported; every other mode
-parses and validates as before and then raises `NotImplementedError`
-naming its ROADMAP.md queue item. The run is one process: the JAX
-package's multi-process environment is read and a count above one
-raises (`resolve_processes`).
+input-mode exclusivity rules, plus `--device`. Every input mode is
+ported: transcriptome-BAM bulk mode, single-cell mode (`--single-cell`),
+raw reads against a transcriptome (`--reads` with `--annotated` /
+`--novel` / `--index`), index building alone (`--only-index`), raw reads
+against a genome (`--reads --genome --annotation`) and genome BAMs
+(`--genome-alignments --annotation`). Options whose code waits for a
+later port raise `NotImplementedError` naming their ROADMAP.md queue
+item. The run is one process: the JAX package's multi-process
+environment is read and a count above one raises (`resolve_processes`).
 """
 
 from __future__ import annotations
@@ -344,18 +347,31 @@ def main(argv=None) -> int:
     except ValueError as e:
         parser.error(str(e))
 
-    from .quant.bulk import not_ported, quantify_bulk_alignments_from_bam
+    from .quant.bulk import quantify_bulk_alignments_from_bam
 
     resolve_processes(args)
-    if args.only_index or args.reads is not None or args.genome is not None:
-        raise not_ported(
-            "raw-read input (--reads, --genome, --only-index)",
-            "queue A item 5",
-        )
+    if args.only_index:
+        from .quant.raw_reads import only_index
+
+        return only_index(args)
     if args.genome_alignments is not None:
-        raise not_ported(
-            "genome-BAM input (--genome-alignments)", "queue A item 5"
-        )
+        from .quant.genome import quantify_genome_alignments_from_bam
+
+        quantify_genome_alignments_from_bam(args, opts)
+        log.info("oarfish-tpu-torch completed successfully.")
+        return 0
+    if args.genome is not None:
+        from .quant.genome_reads import quantify_genome_raw_reads
+
+        quantify_genome_raw_reads(args, opts)
+        log.info("oarfish-tpu-torch completed successfully.")
+        return 0
+    if args.reads is not None:
+        from .quant.raw_reads import quantify_bulk_alignments_raw_reads
+
+        quantify_bulk_alignments_raw_reads(args, opts)
+        log.info("oarfish-tpu-torch completed successfully.")
+        return 0
     if args.single_cell:
         from .quant.single_cell import quantify_single_cell_from_collated_bam
 

@@ -134,11 +134,15 @@ def build_cuda_libraries(names: Sequence[str] = CUDA_KERNELS) -> None:
 
 def host_library(
     name: str, source: str, flags: Sequence[str] = (),
-    libs: Sequence[str] = (),
+    libs: Sequence[str] = (), native_arch: bool = False,
 ) -> Optional[ctypes.CDLL]:
     """Compile the shared host source `csrc/<source>` (if needed) into
     `_build/lib<name>.so` and load it; `None` when that is not possible
-    (no g++, a missing system library, no source)."""
+    (no g++, a missing system library, no source). `native_arch` builds
+    with `-march=native`, and without it where the compiler refuses it."""
+    if native_arch:
+        return (host_library(name, source, ["-march=native", *flags], libs)
+                or host_library(name, source, flags, libs))
     src = HOST_SRC_DIR / source
     lib = BUILD_DIR / f"lib{name}.so"
     if not src.exists():

@@ -67,6 +67,17 @@ def test_sources_exist():
                  "oarfish_tpu_torch/ops/row_sums.py",
                  "oarfish_tpu_torch/ops/em_dense.py",
                  "oarfish_tpu_torch/quant/single_cell.py",
+                 "oarfish_tpu_torch/io/fasta.py",
+                 "oarfish_tpu_torch/host/mmi.py",
+                 "oarfish_tpu_torch/host/mapper.py",
+                 "oarfish_tpu_torch/genome/annotation.py",
+                 "oarfish_tpu_torch/genome/g2t.py",
+                 "oarfish_tpu_torch/genome/rescue.py",
+                 "oarfish_tpu_torch/genome/project.py",
+                 "oarfish_tpu_torch/genome/project_native.py",
+                 "oarfish_tpu_torch/quant/raw_reads.py",
+                 "oarfish_tpu_torch/quant/genome.py",
+                 "oarfish_tpu_torch/quant/genome_reads.py",
                  "oarfish_tpu_torch/device.py", "chip_smoke.py"):
         assert need in names
     from oarfish_tpu_torch.kernels import build
@@ -85,11 +96,11 @@ def test_source_does_not_name_jax(path):
 
 def test_no_source_names_a_finished_queue_item():
     """The batched v4 bootstraps (queue A item 2), the device coverage
-    model (item 3), single-cell (item 4) and the replicate axis of the
-    route kernels (queue B item 1) are ported: nothing in the port still
-    points at them as work to do, and nothing raises `NotImplementedError`
-    for them."""
-    stale = re.compile(r"queue A item [1234]\b|queue B")
+    model (item 3), single-cell (item 4), the raw-read and genome drivers
+    (item 5) and the replicate axis of the route kernels (queue B item 1)
+    are ported: nothing in the port still points at them as work to do,
+    and nothing raises `NotImplementedError` for them."""
+    stale = re.compile(r"queue A item [12345]\b|queue B")
     for path in port_sources():
         hits = [ln for ln in path.read_text().splitlines()
                 if stale.search(ln)]
@@ -164,18 +175,30 @@ BAM = ["--alignments", "x.bam", "-o", "out", "--device", "cpu"]
     (BAM + ["--num-shards", "2"], "queue A item 6"),
     (BAM + ["--num-processes", "2"], "queue A item 6"),
     (BAM + ["--single-cell", "--num-shards", "2"], "queue A item 6"),
-    (["--reads", "r.fq", "--annotated", "t.fa", "--seq-tech", "ont-cdna",
-      "-o", "out"], "queue A item 5"),
-    (["--genome-alignments", "g.bam", "--annotation", "a.gtf", "-o", "out"],
-     "queue A item 5"),
-    (["--only-index", "--index-out", "i.idx", "--annotated", "t.fa"],
-     "queue A item 5"),
 ])
 def test_unported_options_raise(argv, queue):
     """They raise before the (non-existent) input is even opened."""
     with pytest.raises(NotImplementedError, match="not ported") as e:
         torch_main(argv)
     assert queue in str(e.value) and "ROADMAP.md" in str(e.value)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--reads", "r.fq", "--annotated", "t.fa", "--seq-tech", "ont-cdna",
+     "-o", "out", "--device", "cpu"],
+    ["--genome-alignments", "g.bam", "--annotation", "a.gtf", "-o", "out",
+     "--device", "cpu"],
+    ["--only-index", "--index-out", "i.idx", "--annotated", "t.fa"],
+], ids=["reads", "genome_alignments", "only_index"])
+def test_raw_read_and_genome_modes_get_past_the_option_check(argv, tmp_path,
+                                                             monkeypatch):
+    """The raw-read and genome drivers (queue A item 5) are ported: the
+    same command lines that raised `NotImplementedError` now run, and fail
+    on the input that does not exist."""
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(OSError):
+        torch_main(argv)
+    assert not (tmp_path / "i.idx").exists()
 
 
 def test_v4_is_ported_and_v3_is_not():
@@ -202,10 +225,11 @@ def test_roadmap_has_the_queue_items_named_in_errors(item):
 
 def test_errors_cite_exactly_the_open_queue_items():
     """Every queue item an error cites is one the test above checks, and
-    single-cell (item 4, ported) is cited no more."""
+    single-cell (item 4) and the raw-read and genome drivers (item 5),
+    both ported, are cited no more."""
     cited = {int(m) for p in port_sources()
              for m in re.findall(r"queue A item (\d+)", p.read_text())}
-    assert sorted(cited) == [5, 6, 7]
+    assert sorted(cited) == [6, 7]
 
 
 def test_process_count_from_the_environment_raises(monkeypatch):
