@@ -56,9 +56,29 @@ JSON object per phase goes to standard output:
                  run with the same multiplicities), a second v4 run
                  (bit-identical, its plan out of the plan cache),
                  `--em-impl pallas` with 8 replicates, `--em-impl segsum`
+  em_v3          the same store with `--em-impl v3`, f32, 8 bootstrap
+                 replicates (one after another), then the SQUAREM runner
+                 on the same device state: the host build's seconds, its geometry (NPAD,
+                 chunks, Q, R1, R3) and the bytes of K2's composed
+                 offsets; iterations, EM seconds, ms per iteration,
+                 replicate seconds; exact launches (a sorted gather and
+                 four tile permutes an m-step, nothing else); K1 on v3's
+                 interleaved plan and K2 on each stage of both permutes
+                 bit-equal to their plain versions, with event and device
+                 times, the plain version's, `index_select`'s and the
+                 bound; mass within 1e-5, L1/R < 2e-3 against the `segsum`
+                 and `v4` runs of em_full_width; SQUAREM's iterations, EM
+                 seconds and exact launches, the same iterations as the
+                 segment-sum SQUAREM on the card and L1/R < 2e-3 to it
   cli_e2e        a collated BAM of the same scale through the CLI with
                  its defaults (cuda, auto -> v4), coverage model and
-                 assignment probabilities on; then a smaller BAM through
+                 assignment probabilities on, three times: (a) with
+                 OARFISH_PREBUILD=0 and a fresh plan cache, (b) with the
+                 prebuild and another fresh cache, (c) again on (b)'s
+                 cache, where the BAM's pointer file must give a prefetch
+                 hit; `.quant`, `.ambig_info.tsv` and `.prob` byte-equal
+                 across the three, each run's wall, pack, route build and
+                 `prebuild.finish` seconds; then a smaller BAM through
                  the CLI with `--em-impl pallas`, and the sorted-gather
                  kernel against its plain version on that BAM's own plan
   covmodel_device_vs_host  the first CLI run's BAM packed again: the device
@@ -120,7 +140,9 @@ middle and a row sum more for a layout without a level table), with one
 m-step per iteration plus the final one, per run
 and per batch of bootstrap replicates: a batch runs to its slowest
 replicate's count, all replicates in the same launches, which are counted
-a second time as launches of the replicate-axis arms. The single-cell
+a second time as launches of the replicate-axis arms. Under `v3` an
+m-step is one sorted gather and four tile permutes, for the run and for
+each bootstrap replicate one after another. The single-cell
 runs launch none of these kernels, and that is checked too. The raw-read
 and genome runs end in the bulk tail: one sorted gather per m-step where
 it takes `pallas` (as it does at their sizes), none under `segsum`.
@@ -130,6 +152,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import json
 import logging
 import os
@@ -162,15 +185,15 @@ from oarfish_tpu_torch.host.store import (
 from oarfish_tpu_torch.kernels import build as kernel_build
 from oarfish_tpu_torch.models import coverage as covmodel_host
 from oarfish_tpu_torch.models import coverage_torch as covmodel_device
-from oarfish_tpu_torch.ops import balance, em_dense, em_fast, em_v4
-from oarfish_tpu_torch.ops import permute_plan
+from oarfish_tpu_torch.ops import balance, em_dense, em_fast, em_v3, em_v4
+from oarfish_tpu_torch.ops import permute_plan, static_permute
 from oarfish_tpu_torch.ops import route_middle as rm
 from oarfish_tpu_torch.ops import route_stage as rs
 from oarfish_tpu_torch.ops import row_sums as rsm
 from oarfish_tpu_torch.ops import sorted_gather as sg
 from oarfish_tpu_torch.ops import tile_permute as tp
 from oarfish_tpu_torch.ops.bootstrap import BOOT_BATCH, sample_multiplicities
-from oarfish_tpu_torch.ops.em import uniform_init
+from oarfish_tpu_torch.ops.em import EmData, run_em_squarem, uniform_init
 from oarfish_tpu_torch.ops.em_dense import DenseCellEm, _m_step_dense
 from oarfish_tpu_torch.ops.em_fast import FastEmData
 from oarfish_tpu_torch.ops.static_permute import GlobalRoute
@@ -797,6 +820,11 @@ class EmLogCapture(logging.Handler):
                       r"iterations \[([0-9, ]*)\]")
     AUTO = re.compile(r"em-impl auto -> (\w+)")
     ROUTING = re.compile(r"v4 routing built in ([0-9.]+)s")
+    V3_ROUTING = re.compile(r"v3 routing built in ([0-9.]+)s")
+    V3_LAYOUT = re.compile(r"v3 layout: NPAD (\d+), (\d+) chunks, "
+                           r"Q (\d+) / (\d+), R1 (\d+) / (\d+), "
+                           r"R3 (\d+) / (\d+)")
+    PREBUILD = re.compile(r"phase prebuild\.finish ([0-9.]+)s")
     LAYOUT = re.compile(r"v4 layout: (\d+) big transcripts, (\w+) middle")
     SC_PHASE = re.compile(r"phase (sc\.\w+) ([0-9.]+)")
     MODE_PHASE = re.compile(r"phase ((?:rawreads|genome)\.[\w.]+) ([0-9.]+)")
@@ -814,6 +842,10 @@ class EmLogCapture(logging.Handler):
         self.auto = []
         self.routing = []
         self.layout = []
+        self.v3_routing = []
+        self.v3_layout = []
+        self.prebuild = []
+        self.prefetch_hits = 0
         self.sc = []
         self.mode_phases = []
         self.records = []
@@ -838,6 +870,17 @@ class EmLogCapture(logging.Handler):
         m = self.LAYOUT.search(msg)
         if m:
             self.layout.append((int(m.group(1)), m.group(2) == "fused"))
+        m = self.V3_ROUTING.search(msg)
+        if m:
+            self.v3_routing.append(float(m.group(1)))
+        m = self.V3_LAYOUT.search(msg)
+        if m:
+            self.v3_layout.append([int(g) for g in m.groups()])
+        m = self.PREBUILD.search(msg)
+        if m:
+            self.prebuild.append(float(m.group(1)))
+        if "v4 plan prefetch hit" in msg:
+            self.prefetch_hits += 1
         m = self.MODE_PHASE.search(msg)
         if m:
             self.mode_phases.append((m.group(1), float(m.group(2))))
@@ -1521,8 +1564,9 @@ def row_sums_vs_plain(data, values, device) -> dict:
     return out
 
 
-def phase_em_full_width(csr, R, T, device, tmp: Path, capture, fused: bool):
-    """Returns (the phase's line, launches per kernel in the phase)."""
+def bench_store(csr, R, T):
+    """The bench CSR as an AlignmentStore, with names, lengths and a
+    coverage table for `perform_inference_and_write_output`."""
     txp_id, w, boundaries, A = csr
     store = AlignmentStore(
         txp_id=txp_id,
@@ -1536,7 +1580,14 @@ def phase_em_full_width(csr, R, T, device, tmp: Path, capture, fused: bool):
     )
     names = [f"t{i:06d}" for i in range(T)]
     lens = np.full(T, 2000, dtype=np.int64)
-    coverage = TranscriptCoverage(lens, 0)
+    return store, names, lens, TranscriptCoverage(lens, 0)
+
+
+def phase_em_full_width(csr, R, T, device, tmp: Path, capture, fused: bool):
+    """Returns (the phase's line, launches per kernel in the phase, the
+    counts of each run)."""
+    txp_id, w, boundaries, A = csr
+    store, names, lens, coverage = bench_store(csr, R, T)
 
     def run(tag, impl, boots):
         args = Args(
@@ -1660,6 +1711,266 @@ def phase_em_full_width(csr, R, T, device, tmp: Path, capture, fused: bool):
                    l1_over_R=serial_l1,
                    max_abs_diff=float(np.abs(reps[0] - serial).max())))
     emit("em_full_width", **out)
+    return out, total, counts
+
+
+@contextlib.contextmanager
+def recording_v3_builds():
+    """Keep the device state of every `EmV3Data.build` made while the block
+    runs, so that its kernels can be held against their plain versions on
+    the run's own plans afterwards."""
+    built = []
+    real = em_v3.EmV3Data.build
+
+    def record(*args, **kwargs):
+        out = real(*args, **kwargs)
+        built.append(out[0])
+        return out
+
+    em_v3.EmV3Data.build = staticmethod(record)
+    try:
+        yield built
+    finally:
+        em_v3.EmV3Data.build = staticmethod(real)
+
+
+@contextlib.contextmanager
+def plain_v3_kernels():
+    """Run the v3 m-step's sorted gather and tile permutes through their
+    plain versions on the card while the block runs."""
+    gather, permute = em_v3.gather_rows, static_permute.tile_permute
+
+    def plain_permute(x, stage, replicates=1):
+        return tp.tile_permute_reference(x, stage.r1, stage.r2, stage.src,
+                                         stage.row, stage.R_in,
+                                         stage.n_chunks, replicates)
+
+    em_v3.gather_rows = sg.gather_rows_reference
+    static_permute.tile_permute = plain_permute
+    try:
+        yield
+    finally:
+        em_v3.gather_rows, static_permute.tile_permute = gather, permute
+
+
+def v3_kernels_vs_plain(data, device) -> dict:
+    """K1 on v3's interleaved plan and K2 on each of the four stages of P1
+    and P2, bit for bit against their plain versions, f32, with event and
+    device times, the plain version's and one `index_select`'s, and the
+    bound at the card's memory rate. Back to back, a launch finds part of
+    the last one's tables in the 50 MB L2 cache, so each kernel's device
+    time is also taken with the cache flushed before each launch, as the
+    m-step's other work leaves it."""
+    L = sg.LANES
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    flush = l2_flush(device)
+
+    def cold(fn):
+        def run():
+            flush()
+            fn()
+        return run
+
+    def values(*shape):
+        return (torch.rand(*shape, generator=gen) - 0.3).to(device)
+
+    # K1: the table of an m-step, the plan's rows spread over NPAD / 128
+    S, NR = data.g_table_rows, data.g_rows
+    tab = values(S, L)
+    args = (data.g_base, data.g_lane, data.g_hi)
+    err = kernel_equals_plain(tab, *args)
+    row = data.g_base.unsqueeze(-1).long() + data.g_hi.long()
+    valid = (row >= 0) & (row < S)
+    # pad rows read a zero appended after the table
+    flat = torch.cat([tab.reshape(-1), tab.new_zeros(1)])
+    idx = torch.where(valid, row.clamp(0, S - 1) * L + data.g_lane.long(),
+                      S * L).reshape(-1)
+    assert torch.equal(flat.index_select(0, idx).reshape(NR, L),
+                       sg.gather_rows_reference(tab, *args))
+    n_bytes = NR * L * (4 + 1 + 4) + NR * 4 + S * L * 4
+    k1 = dict(
+        n_rows=NR, table_rows=S, pad_rows=int((data.g_base < 0).sum()),
+        max_abs_err=err,
+        ms=time_ms(lambda: sg.gather_rows_cuda(tab, *args), device),
+        plain_ms=time_ms(lambda: sg.gather_rows_reference(tab, *args),
+                         device),
+        library_ms=time_ms(lambda: flat.index_select(0, idx), device),
+        device_ms=device_ms(lambda: sg.gather_rows_cuda(tab, *args), device),
+        device_ms_l2_flushed=device_ms(
+            cold(lambda: sg.gather_rows_cuda(tab, *args)), device,
+            only="sorted_gather_kernel"),
+        library_device_ms=device_ms(lambda: flat.index_select(0, idx),
+                                    device),
+        **bound(n_bytes, 3 * NR * L))
+    # K2: stages 1 and 3 of both permutes, at R1 / R3 rows
+    k2 = {}
+    for name in ("p1", "p2"):
+        plan = getattr(data, name)
+        for tag, t in (("stage1", plan.stage1), ("stage3", plan.stage3)):
+            x = values(t.n_tiles * t.rows, L)
+            targs = (x, t.r1, t.r2, t.src, t.lane, t.rows, t.n_tiles)
+            err = bit_equal(f"tile_permute v3 {name}.{tag}",
+                            tp.tile_permute_cuda(x, t.stage),
+                            tp.tile_permute_reference(*targs))
+            pidx = flat_index(lambda v: tp.tile_permute_reference(
+                v.reshape(-1, L), *targs[1:]), x.numel(), device)
+            xf = x.reshape(-1)
+            k2[f"{name}.{tag}"] = dict(
+                rows=t.rows, n_tiles=t.n_tiles, elements=x.numel(),
+                offset_dtype=str(t.stage.off.dtype),
+                offset_bytes=nbytes(t.stage.off), max_abs_err=err,
+                ms=time_ms(lambda: tp.tile_permute_cuda(x, t.stage), device),
+                plain_ms=time_ms(lambda: tp.tile_permute_reference(*targs),
+                                 device, 5, 5),
+                library_ms=time_ms(lambda: xf.index_select(0, pidx), device),
+                device_ms=device_ms(lambda: tp.tile_permute_cuda(x, t.stage),
+                                    device),
+                device_ms_l2_flushed=device_ms(
+                    cold(lambda: tp.tile_permute_cuda(x, t.stage)), device,
+                    only="tile_permute_kernel"),
+                library_device_ms=device_ms(
+                    lambda: xf.index_select(0, pidx), device),
+                **bound(nbytes(x, x, t.r1, t.r2, t.src, t.lane), 0,
+                        moved=nbytes(x, x, t.stage.off)))
+            del x, xf, pidx
+    return dict(sorted_gather=k1, tile_permute=k2)
+
+
+def phase_em_v3(csr, R, T, device, tmp: Path, capture, counts_em):
+    """`--em-impl v3` on the bench CSR at full width through
+    `perform_inference_and_write_output`, f32, with 8 bootstrap replicates
+    (one after another); K1 and K2 against their plain versions on the
+    run's own plans; the SQUAREM runner (`make_runner(accel="squarem")`)
+    on the same device state; mass, and L1/R against the `segsum` and `v4`
+    runs of `em_full_width`. Returns (the phase's line, launches per
+    kernel)."""
+    store, names, lens, coverage = bench_store(csr, R, T)
+
+    def run(tag, boots):
+        args = Args(output=tmp / tag, em_impl="v3", em_dtype="float32",
+                    num_bootstraps=boots, seed=0)
+        n_em, n_boot = len(capture.em), len(capture.boot)
+        n_route, n_layout = len(capture.v3_routing), len(capture.v3_layout)
+        warn0 = len(capture.warnings)
+        with recording_v3_builds() as built:
+            reset_launch_counts()
+            t0 = time.time()
+            counts = perform_inference_and_write_output(
+                store, coverage, names, lens, resolve_filters(args), args,
+                {}, 0.0)
+            torch.cuda.synchronize(device)
+            wall = time.time() - t0
+            launched = launch_counts()
+        assert not capture.warnings[warn0:], capture.warnings[warn0:]
+        impl_ran, iters, em_s = capture.em[n_em]
+        assert impl_ran == "v3", impl_ran
+        # an m-step per iteration and the final one, for the run and for
+        # each replicate (no batch arm: one after another)
+        m_steps = iters + 1
+        boot_s = boot_iters = None
+        if boots:
+            n_reps, boot_s, boot_iters = capture.boot[n_boot]
+            assert n_reps == boots == len(boot_iters)
+            m_steps += sum(n + 1 for n in boot_iters)
+        want = dict.fromkeys(KERNELS, 0)
+        want.update(sorted_gather=m_steps, tile_permute=4 * m_steps)
+        assert launched == want, (tag, launched, want)
+        assert np.isfinite(counts).all() and counts.shape == (T,)
+        assert np.array_equal(read_quant(str(tmp / tag) + ".quant"), counts)
+        (data,) = built
+        npad, n_src, q1, q2, r1a, r1b, r3a, r3b = capture.v3_layout[n_layout]
+        res = dict(iterations=iters, em_s=em_s,
+                   ms_per_iteration=em_s / (iters + 1) * 1e3,
+                   routing_s=capture.v3_routing[n_route],
+                   bootstrap_s=boot_s, bootstrap_iterations=boot_iters,
+                   launches=launched, wall_s=round(wall, 3),
+                   layout=dict(NPAD=npad, n_src=n_src, Q=[q1, q2],
+                               R1=[r1a, r1b], R3=[r3a, r3b]))
+        return counts, res, data
+
+    runs = {}
+    c, runs["v3"], data = run("v3", REPLICATES)
+    total = dict(runs["v3"]["launches"])
+    offsets = {f"{p}.{s}": nbytes(getattr(getattr(data, p), s).stage.off)
+               for p in ("p1", "p2") for s in ("stage1", "stage3")}
+    kernels = v3_kernels_vs_plain(data, device)
+
+    # SQUAREM on the same device state: a cycle is 3 m-steps, and the
+    # final step. Its clamp at zero and the zeroing before the final step
+    # make its stopping point turn on the last bits of f32 sums (on this
+    # CSR it drops about a quarter of the reads' mass, the JAX package's
+    # SQUAREM too: ROADMAP section C), so v3 and segment sums stop after
+    # different numbers of m-steps. The run through K1 and K2 must equal,
+    # bit for bit, the same run through their plain versions on the card,
+    # and come within L1/R 2e-3 of the segment-sum SQUAREM
+    defaults = Args()
+    run_sq = em_v3.make_runner(data, accel="squarem")
+
+    def squarem():
+        t0 = time.time()
+        out, n = run_sq(uniform_init(data, torch.float32),
+                        defaults.max_em_iter, defaults.convergence_thresh)
+        out = out.double().cpu().numpy()
+        return out, int(n), time.time() - t0
+
+    reset_launch_counts()
+    sq, sq_iters, sq_s = squarem()
+    launched = launch_counts()
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(sorted_gather=sq_iters + 1, tile_permute=4 * (sq_iters + 1))
+    assert launched == want, ("squarem", launched, want)
+    for k, n in launched.items():
+        total[k] += n
+    with plain_v3_kernels():
+        sq_plain, sq_plain_iters, sq_plain_s = squarem()
+    assert launch_counts() == launched, "the plain run launched a kernel"
+    assert np.isfinite(sq).all() and sq_iters == sq_plain_iters, (
+        sq_iters, sq_plain_iters)
+    assert np.array_equal(sq, sq_plain), (
+        "v3 SQUAREM through K1/K2 differs from its plain versions: L1/R "
+        f"{float(np.abs(sq - sq_plain).sum() / R)}")
+    del data
+    txp_id, w, boundaries, _ = csr
+    seg = EmData.build(txp_id, w, np.repeat(np.arange(R), np.diff(boundaries)),
+                       R, T, dtype=torch.float32, device=device)
+    seg_sq, seg_iters = run_em_squarem(seg, uniform_init(seg, torch.float32),
+                                       defaults.max_em_iter,
+                                       defaults.convergence_thresh)
+    seg_sq = seg_sq.double().cpu().numpy()
+    del seg
+    sq_l1 = float(np.abs(sq - seg_sq).sum() / R)
+    assert sq_l1 < L1_OVER_R_LIMIT, f"v3 vs segsum SQUAREM L1/R = {sq_l1}"
+    runs["squarem"] = dict(
+        iterations=sq_iters, em_s=round(sq_s, 3),
+        ms_per_iteration=sq_s / (sq_iters + 1) * 1e3, launches=launched,
+        plain_versions=dict(iterations=sq_plain_iters,
+                            em_s=round(sq_plain_s, 3), bit_equal=True),
+        mass_rel_err=float(abs(sq.sum() - R) / R),
+        segsum_squarem=dict(
+            iterations=int(seg_iters),
+            mass_rel_err=float(abs(seg_sq.sum() - R) / R),
+            l1_over_R=sq_l1),
+        l1_over_R_vs_plain_em=float(np.abs(sq - c).sum() / R))
+
+    mass_err = abs(c.sum() - R) / R
+    assert mass_err < 1e-5, f"v3 mass off by {mass_err}"
+    l1 = {tag: float(np.abs(c - counts_em[tag]).sum() / R)
+          for tag in ("segsum", "v4")}
+    assert max(l1.values()) < L1_OVER_R_LIMIT, f"v3 L1/R = {l1}"
+    import pyarrow.parquet as pq
+
+    reps = pq.read_table(str(tmp / "v3") + ".infreps.pq")
+    reps = np.stack([np.asarray(reps[col]) for col in reps.column_names])
+    assert reps.shape == (REPLICATES, T) and np.isfinite(reps).all()
+    rep_mass = float(np.abs(reps.sum(axis=1) - R).max() / R)
+    assert rep_mass < 1e-5, f"v3 replicate mass off by {rep_mass}"
+    out = dict(R=R, T=T, A=csr[3], dtype="float32", **runs,
+               k2_offset_bytes=offsets,
+               k2_offset_bytes_total=sum(offsets.values()),
+               mass_rel_err=float(mass_err), l1_over_R=l1,
+               replicate_mass_rel_err=rep_mass, kernels=kernels,
+               launches=total)
+    emit("em_v3", **out)
     return out, total
 
 
@@ -1688,6 +1999,42 @@ def run_cli(bam: Path, out: Path, extra, device, capture):
     return argv, counts, kept, meta, capture.em[n_em], launched, wall
 
 
+@contextlib.contextmanager
+def environment(**values):
+    """Set environment variables for the block (None: unset), then put
+    back what was there."""
+    old = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def file_digest(path) -> str:
+    h = hashlib.blake2b(digest_size=20)
+    with open(path, "rb") as fh:
+        for block in iter(lambda: fh.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+# the CLI runs of the host work hidden behind the pack: (a) without it and
+# with a fresh plan cache, (b) with it and another fresh cache, (c) with it
+# again on (b)'s cache, whose BAM pointer gives a prefetch hit
+A8_RUNS = (("no_prebuild", "0", "plans_a"), ("prebuild", None, "plans_b"),
+           ("prefetch", None, "plans_b"))
+A8_OUTPUTS = (".quant", ".ambig_info.tsv", ".prob")
+
+
 def phase_cli_e2e(R, T, device, tmp: Path, capture):
     """Returns (the phase's line, launches per kernel in the phase)."""
     bam = tmp / "e2e.bam"
@@ -1695,28 +2042,61 @@ def phase_cli_e2e(R, T, device, tmp: Path, capture):
     n_alns = build_e2e_bam(bam, R, T)
     gen_s = time.time() - t0
     # the defaults: cuda, and `auto`, which takes v4 at this size
-    n_auto, n_route, n_layout = (len(capture.auto), len(capture.routing),
-                                 len(capture.layout))
-    argv, counts, kept, meta, (impl, iters, em_s), launched, wall = run_cli(
-        bam, tmp / "cli", [], device, capture)
-    assert counts.shape == (T,)
-    assert capture.auto[n_auto:] == ["v4"], capture.auto[n_auto:]
-    assert impl == "v4", f"auto chose {impl}, expected v4"
-    assert len(capture.layout) == n_layout + 1
-    n_big, fused = capture.layout[-1]
-    assert launched == v4_launches(iters + 1, fused), (
-        launched, iters, n_big, fused)
+    runs, outputs, launched = {}, {}, dict.fromkeys(KERNELS, 0)
+    for tag, prebuild, cache in A8_RUNS:
+        n_auto, n_route, n_layout = (len(capture.auto), len(capture.routing),
+                                     len(capture.layout))
+        n_pb, hits = len(capture.prebuild), capture.prefetch_hits
+        with environment(OARFISH_PREBUILD=prebuild,
+                         OARFISH_PLAN_CACHE_DIR=str(tmp / cache),
+                         OARFISH_PHASE_TIMING="1"):
+            argv, counts, kept, meta, (impl, iters, em_s), run_launched, wall = (
+                run_cli(bam, tmp / f"cli_{tag}", [], device, capture))
+        assert counts.shape == (T,)
+        assert capture.auto[n_auto:] == ["v4"], capture.auto[n_auto:]
+        assert impl == "v4", f"auto chose {impl}, expected v4"
+        assert len(capture.layout) == n_layout + 1
+        n_big, fused = capture.layout[-1]
+        assert run_launched == v4_launches(iters + 1, fused), (
+            run_launched, iters, n_big, fused)
+        for k, n in run_launched.items():
+            launched[k] += n
+        outputs[tag] = {ext: file_digest(str(tmp / f"cli_{tag}") + ext)
+                        for ext in A8_OUTPUTS}
+        runs[tag] = dict(
+            wall_s=round(wall, 2),
+            pack_s=round(float(meta["alignment_time"]["seconds"]), 2),
+            routing_s=capture.routing[n_route],
+            prebuild_finish_s=(capture.prebuild[n_pb]
+                               if len(capture.prebuild) > n_pb else None),
+            prefetch_hit=capture.prefetch_hits > hits,
+            iterations=iters, em_s=em_s, launches=run_launched,
+            reads_kept=kept,
+            mass_rel_err=float(abs(counts.sum() - kept) / kept))
+        if tag == "no_prebuild":
+            first = dict(argv=argv, kept=kept, iters=iters, em_s=em_s,
+                         counts=counts)
+    # the hidden host work changes no byte, and the third run took the
+    # plan that the second stored, through the BAM's pointer file
+    for tag in ("prebuild", "prefetch"):
+        assert outputs[tag] == outputs["no_prebuild"], (
+            f"{tag} run's outputs differ from the run without prebuild")
+    assert not runs["no_prebuild"]["prefetch_hit"]
+    assert not runs["prebuild"]["prefetch_hit"]
+    assert runs["prefetch"]["prefetch_hit"], "no prefetch hit in run (c)"
     res = dict(
-        R=R, T=T, records=n_alns, reads_kept=kept,
+        R=R, T=T, records=n_alns,
         native_decoder=native.available(),
         bam_mb=round(bam.stat().st_size / 2**20, 1),
-        bam_build_s=round(gen_s, 2), wall_s=round(wall, 2),
-        pack_s=round(float(meta["alignment_time"]["seconds"]), 2),
-        em_impl=impl, auto=True, iterations=iters, em_s=em_s,
-        routing_s=capture.routing[n_route], launches=launched,
-        mass_rel_err=float(abs(counts.sum() - kept) / kept),
+        bam_build_s=round(gen_s, 2), **runs["no_prebuild"],
+        em_impl="v4", auto=True,
+        a8_runs=runs, a8_outputs_byte_equal=True,
+        a8_prefetch_skipped_route_build=runs["prefetch"]["prefetch_hit"],
     )
-    phase_covmodel_device_vs_host(bam, argv, kept, device)
+    res["launches"] = launched
+    res["mass_rel_err"] = float(
+        abs(first["counts"].sum() - first["kept"]) / first["kept"])
+    phase_covmodel_device_vs_host(bam, first["argv"], first["kept"], device)
     bam.unlink()
 
     # an earlier path at a smaller size: `--em-impl pallas`, and the
@@ -2326,9 +2706,11 @@ def main(argv=None) -> int:
 
         # the main paths: each run sets the launch counts to 0 before it
         # drives the port and reads them before any comparison
-        _, launches_em = phase_em_full_width(
+        _, launches_em, counts_em = phase_em_full_width(
             csr, R, T, device, tmp, capture,
             fused=k234["plan"]["fused_middle"])
+        v3, launches_v3 = phase_em_v3(csr, R, T, device, tmp, capture,
+                                      counts_em)
         cli, launches_cli = phase_cli_e2e(R, T, device, tmp, capture)
         phase_single_cell(device, tmp, capture)
         raw, launches_raw = phase_raw_reads(device, tmp, capture)
@@ -2339,7 +2721,8 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    by_path = {"em_full_width": launches_em, "cli_e2e": launches_cli,
+    by_path = {"em_full_width": launches_em, "em_v3": launches_v3,
+               "cli_e2e": launches_cli,
                "raw_reads": launches_raw, "genome_reads": launches_greads,
                "genome_bam": launches_gbam}
     # the raw-read and genome runs end in the same tail: at their sizes it
@@ -2374,7 +2757,7 @@ def main(argv=None) -> int:
     def also(measured, tag):
         return {f"{k}_{tag}": measured[k]
                 for k in ("ms", "plain_ms", "bound_ms", "library_ms",
-                          *DEVICE_TIMES)
+                          "device_ms_l2_flushed", *DEVICE_TIMES)
                 if k in measured}
 
     def device_times(measured):
@@ -2382,20 +2765,28 @@ def main(argv=None) -> int:
 
     k2, k3, k4 = (k234[k] for k in ("tile_permute", "route_stage",
                                     "route_middle"))
+    # v3's shapes: K1 on its interleaved plan, K2 at R1 / R3 rows
+    v3k1, v3k2 = (v3["kernels"][k] for k in ("sorted_gather",
+                                             "tile_permute"))
+    v3_k2 = {}
+    for stage, m in v3k2.items():
+        v3_k2.update(also(m, "v3_" + stage.replace(".", "_")))
     reduce_tag = next(t for t in k3 if t.startswith("reduce"))
     kernels = [
         entry("sorted_gather",
               dict(k1, max_abs_err=max(
-                  k1["max_abs_err"], k1_mode_err,
+                  k1["max_abs_err"], k1_mode_err, v3k1["max_abs_err"],
                   cli["pallas_run"]["k1_plan"]["max_abs_err"])),
               **device_times(k1), ms_8_replicates=k1["ms_b8"],
-              bound_ms_8_replicates=k1["bound_ms_b8"]),
+              bound_ms_8_replicates=k1["bound_ms_b8"],
+              **also(v3k1, "v3")),
         entry("tile_permute",
               dict(k2["t_in"], max_abs_err=max(
-                  v["max_abs_err"] for v in k2.values())),
+                  v["max_abs_err"]
+                  for v in (*k2.values(), *v3k2.values()))),
               measured_on="t_in", **device_times(k2["t_in"]),
               **also(k2["t_out"], "t_out"),
-              **also(k2["t_in_x8"], "8_replicates")),
+              **also(k2["t_in_x8"], "8_replicates"), **v3_k2),
         entry("route_stage",
               dict(k3["expand_y1_mul"], max_abs_err=max(
                   v["max_abs_err"] for v in k3.values())),

@@ -149,9 +149,11 @@ def build_parser() -> argparse.ArgumentParser:
         help="EM formulation (auto: segsum on cpu; on cuda v4 from a "
         "million alignments and 150 expected iterations on, else pallas). "
         "v4 is the routed iteration on static permutation networks, "
-        "always f32; pallas is the scatter-free formulation with the "
+        "always f32; v3 is the sorted gather with two static "
+        "permutations of the alignment space (never chosen by auto); "
+        "pallas is the scatter-free formulation with the "
         "hand-written sorted-gather kernel; fast is the same with torch "
-        "indexing; segsum uses segment sums; v3 is not ported yet",
+        "indexing; segsum uses segment sums",
     )
     p.add_argument(
         "--em-accel",

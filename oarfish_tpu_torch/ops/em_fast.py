@@ -318,20 +318,30 @@ def _m_step_fast(
     else:
         contrib_csc = prev_ext.index_select(-1, data.txp_csc) * data.w_csc
     inc = contrib_csc * scale_ext.index_select(-1, data.read_csc)
-    local = torch.cumsum(inc.reshape(*lead, data.num_tiles, TILE), dim=-1)
+    return offset_sums(inc, data.off_tile, data.off_prev,
+                       data.off_inner).to(prev.dtype)
+
+
+def offset_sums(inc: torch.Tensor, off_tile: torch.Tensor,
+                off_prev: torch.Tensor, off_inner: torch.Tensor
+                ) -> torch.Tensor:
+    """Sums of `inc` (last axis a multiple of TILE) between consecutive
+    offsets (`offset_tables`): a tile-local cumsum plus the double-double
+    prefix of the tile totals, differenced at the offsets."""
+    lead = inc.shape[:-1]
+    local = torch.cumsum(inc.reshape(*lead, -1, TILE), dim=-1)
     g_hi, g_lo = exclusive_tile_prefix(local[..., -1])
     # exclusive prefix S(pos) = sum(inc[:pos]) at the T+1 offsets: the
     # prefix of the tiles before pos, plus the in-tile cumsum that ends
     # at pos-1 unless pos sits on a tile boundary
     within = torch.where(
-        data.off_inner,
-        local.reshape(*lead, -1).index_select(-1, data.off_prev),
+        off_inner,
+        local.reshape(*lead, -1).index_select(-1, off_prev),
         0.0,
     )
-    hi = g_hi.index_select(-1, data.off_tile)
-    lo = g_lo.index_select(-1, data.off_tile) + within
-    curr = (hi[..., 1:] - hi[..., :-1]) + (lo[..., 1:] - lo[..., :-1])
-    return curr.to(prev.dtype)
+    hi = g_hi.index_select(-1, off_tile)
+    lo = g_lo.index_select(-1, off_tile) + within
+    return (hi[..., 1:] - hi[..., :-1]) + (lo[..., 1:] - lo[..., :-1])
 
 
 def run_em_fast(

@@ -54,15 +54,22 @@ layout runs the replicates one after another (`_m_step_v4_b`). The
 counterparts of `run_em_v4_batch` / `run_em_v4_batch_squarem` are
 `run_em_v4` / `run_em_v4_squarem` with `init` `[B, T]`.
 
-Not ported: `V4Prebuild`, the envelope / canonical-shape code, the
-rectangular rebuild, the environment switches of the JAX package's A/B
-work (each one's default is taken), and the sub-batches of four replicates
-that fit another memory budget.
+`V4Prebuild` takes the layout's A-sized inputs from the pack's chunks as
+they land (`_v4_layout(pre=...)`), and `EmV4Data.build` takes a plan
+read during the pack (`plan_cache.Prefetch`) and writes the BAM's pointer
+file; neither changes a bit of the layout.
+
+Not ported: the envelope / canonical-shape code, the rectangular rebuild,
+the environment switches of the JAX package's A/B work (each one's
+default is taken), and the sub-batches of four replicates that fit
+another memory budget.
 """
 
 from __future__ import annotations
 
 import logging
+import queue
+import threading
 import time
 from dataclasses import dataclass
 from functools import cached_property
@@ -142,6 +149,168 @@ def _pow2_buckets(sizes: np.ndarray, shuffle_rng,
         row_parts.append(rows)
         n_slots += rows_pad * K
     return shapes, starts, row_parts, n_slots
+
+
+_POW2 = 1 << np.arange(63, dtype=np.int64)
+
+
+def _pow2_buckets_pre(class_rows: dict, max_size: int, shuffle_rng,
+                      align_groups: bool = False):
+    """`_pow2_buckets` from prebuilt per-class member lists (ascending
+    ids: the chunk-incremental path). Mirrors `_pow2_buckets` exactly,
+    including the order in which it draws from `shuffle_rng`, so the
+    layout is bit-identical to the monolithic build."""
+    maxk = max(int(max_size), 1)
+    ks: List[int] = []
+    K = 1
+    while K < maxk:
+        ks.append(K)
+        K *= 2
+    ks.append(max(K, 1))
+    buckets = [
+        (K, _pad128(len(class_rows[K])))
+        for K in ks
+        if len(class_rows.get(K, ())) > 0
+    ]
+    shapes = []
+    starts = []
+    row_parts = []
+    n_slots = 0
+    for K, rows_pad in buckets:
+        rows = shuffle_rng.permutation(class_rows[K])
+        if align_groups:
+            span = K * LANES
+            n_slots = ((n_slots + span - 1) // span) * span
+        starts.append(n_slots)
+        shapes.append((int(rows_pad), int(K)))
+        row_parts.append(rows)
+        n_slots += rows_pad * K
+    return shapes, starts, row_parts, n_slots
+
+
+class V4Prebuild:
+    """Chunk-incremental precomputation of the v4 layout's A-sized
+    inputs, overlapped with the streaming pack.
+
+    As filtered CSR chunks land (`host/packer.py`'s `chunk_observer`), a
+    worker thread accumulates, off the critical path after the pack:
+      - per-transcript alignment counts (a running bincount),
+      - each alignment's rank within its transcript (chunk-local counting
+        sort rank plus the running count),
+      - the reads' power-of-two size-class member lists (a read's class is
+        final when its chunk lands: groups never straddle chunks).
+    `_v4_layout(pre=...)` then skips its own rank, read-bucket and
+    bincount passes. The layout is bit-identical to the monolithic one.
+    The worker is a Python thread of NumPy work."""
+
+    def __init__(self, queue_depth: int = 8):
+        self.counts = np.zeros(1024, dtype=np.int64)
+        self.rank_chunks: List[np.ndarray] = []
+        self.class_rows: dict = {}
+        self.read_off = 0
+        self.aln_off = 0
+        self.max_size = 0
+        self._err: Optional[BaseException] = None
+        self._quiet = False
+        self._q: "queue.Queue" = queue.Queue(maxsize=queue_depth)
+        self._th = threading.Thread(target=self._run, daemon=True)
+        self._th.start()
+
+    def observe(self, packed) -> None:
+        """Hand over one packed chunk (`txp_id`, `boundaries`); called on
+        the pack's consumer thread."""
+        if self._err is None:
+            self._q.put((packed.txp_id, np.diff(packed.boundaries)))
+
+    def _run(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            if self._err is not None:
+                continue  # drain
+            try:
+                self._ingest(*item)
+            except BaseException as e:  # noqa: BLE001 - monolithic build
+                self._err = e
+
+    def _ingest(self, txp_id: np.ndarray, sizes: np.ndarray) -> None:
+        t64 = np.ascontiguousarray(txp_id, dtype=np.int64)
+        if len(t64):
+            tmax = int(t64.max())
+            if tmax >= len(self.counts):
+                grown = np.zeros(
+                    max(tmax + 1, 2 * len(self.counts)), dtype=np.int64
+                )
+                grown[: len(self.counts)] = self.counts
+                self.counts = grown
+            rk = _balance.rank_by_key(t64, len(self.counts))
+            if rk is not None:
+                local_rank = rk[1]
+            else:
+                ordc = np.argsort(t64, kind="stable")
+                cc = np.bincount(t64, minlength=len(self.counts))
+                rs = np.zeros(len(cc) + 1, dtype=np.int64)
+                np.cumsum(cc, out=rs[1:])
+                lr = np.arange(len(t64), dtype=np.int64) - rs[t64[ordc]]
+                local_rank = np.empty(len(t64), dtype=np.int64)
+                local_rank[ordc] = lr
+            self.rank_chunks.append(local_rank + self.counts[t64])
+            self.counts[: tmax + 1] += np.bincount(t64, minlength=tmax + 1)
+        sizes = np.asarray(sizes, dtype=np.int64)
+        if len(sizes):
+            self.max_size = max(self.max_size, int(sizes.max()))
+            cls = np.searchsorted(_POW2, sizes, side="left")
+            for c in np.unique(cls):
+                K = int(_POW2[c])
+                ids = self.read_off + np.nonzero(cls == c)[0]
+                self.class_rows.setdefault(K, []).append(ids)
+        self.read_off += len(sizes)
+        self.aln_off += len(t64)
+
+    def finish(self, num_txps: int) -> Optional[dict]:
+        """Join the worker and assemble the layout inputs; None when
+        ingestion failed or was aborted (the caller builds
+        monolithically)."""
+        self._q.put(None)
+        self._th.join()
+        if self._err is not None:
+            if not self._quiet:
+                log.warning("v4 prebuild failed (%s); building "
+                            "monolithically", self._err)
+            return None
+        if len(self.counts) < num_txps:
+            grown = np.zeros(num_txps, dtype=np.int64)
+            grown[: len(self.counts)] = self.counts
+            self.counts = grown
+        empty = np.empty(0, dtype=np.int64)
+        return {
+            "counts": self.counts[:num_txps],
+            "rank": (
+                np.concatenate(self.rank_chunks)
+                if self.rank_chunks
+                else empty
+            ),
+            "classes": {
+                K: np.concatenate(parts)
+                for K, parts in self.class_rows.items()
+            },
+            "max_size": self.max_size,
+            "A": self.aln_off,
+            "R": self.read_off,
+        }
+
+    def abort(self, quiet: bool = False) -> None:
+        """Stop taking chunks; `finish` then returns None (with a warning
+        unless `quiet`)."""
+        self._quiet = self._quiet or quiet
+        self._err = self._err or RuntimeError("aborted")
+        try:
+            self._q.put_nowait(None)
+        except queue.Full:
+            pass
+
+
 def _colmajor_slot(start: int, K: int, row, col):
     """Flat slot of (bucket row, position) in the column-major layout."""
     return start + (row >> 7) * (K << 7) + (col << 7) + (row & 127)
@@ -228,6 +397,9 @@ class EmV4Data:
         dtype: torch.dtype = torch.float32,
         device=None,
         timings: Optional[dict] = None,
+        pre: Optional[dict] = None,
+        prefetch=None,
+        pointer_key: Optional[str] = None,
     ) -> Tuple["EmV4Data", np.ndarray]:
         """Build the routed device state; returns (data, read_order), where
         `read_order[i]` is the original read of padded bucket row i
@@ -240,11 +412,28 @@ class EmV4Data:
         so they are kept in the persistent plan cache (`plan_cache.py`):
         re-quantifying the same alignments skips the whole build, and the
         weights re-enter through one `w_txp` scatter. Raises `ValueError`
-        when no route geometry is feasible (too few alignments)."""
+        when no route geometry is feasible (too few alignments).
+
+        `pre` (from `V4Prebuild.finish`) supplies the layout's A-sized
+        inputs, computed during the pack; `prefetch` (a
+        `plan_cache.Prefetch`) an entry read during the pack, used when its
+        key is this CSR's; `pointer_key` names the BAM pointer file to
+        write on a hit and after a store."""
         device = resolve_device(device)
         cache_key = None
         if plan_cache.enabled():
             cache_key = plan_cache.layout_key(txp_id, boundaries, num_txps)
+            if prefetch is not None:
+                got = prefetch.finish(
+                    cache_key, np.asarray(weights, dtype=np.float64), dtype,
+                    device)
+                if got is not None:
+                    log.info("v4 plan prefetch hit (%s...): route build "
+                             "skipped, the entry read during the pack",
+                             cache_key[:12])
+                    if pointer_key is not None:
+                        plan_cache.write_pointer(pointer_key, cache_key)
+                    return got
             hit = plan_cache.load(cache_key)
             if hit is not None:
                 try:
@@ -259,12 +448,15 @@ class EmV4Data:
                 else:
                     log.info("v4 plan cache hit (%s...): route build skipped",
                              cache_key[:12])
+                    if pointer_key is not None:
+                        plan_cache.write_pointer(pointer_key, cache_key)
                     return out
         t0 = time.perf_counter()
-        lay = _v4_layout(txp_id, weights, boundaries, num_txps, timings)
+        lay = _v4_layout(txp_id, weights, boundaries, num_txps, timings,
+                         pre=pre)
         t1 = time.perf_counter()
         data = _v4_finish(lay, dtype, device, cache_key=cache_key,
-                          timings=timings)
+                          timings=timings, pointer_key=pointer_key)
         if timings is not None:
             timings["layout"] = t1 - t0
             timings["finish"] = time.perf_counter() - t1
@@ -277,6 +469,7 @@ def _v4_layout(
     boundaries: np.ndarray,
     num_txps: int,
     timings: Optional[dict] = None,
+    pre: Optional[dict] = None,
 ) -> dict:
     """Phase 1 of the v4 build: bucket layouts, slot maps, and the tiny
     T-space tile permutes: everything except the two GlobalRoutes.
@@ -286,7 +479,11 @@ def _v4_layout(
     greedily assigned to the bucket row whose chunk minimizes the
     running max (txp-chunk, read-chunk) cell load, pulling the route
     quota Q toward the mean flow (random placement leaves it 2-3x
-    higher). Rows not chosen stay pads (all-zero slots, inert)."""
+    higher). Rows not chosen stay pads (all-zero slots, inert).
+
+    `pre` (from `V4Prebuild.finish`) replaces the read buckets' size
+    classes, the transcript counts and the ranks within transcripts; one
+    whose A, R or T differ from this CSR's is ignored."""
     _t_last = [time.perf_counter()]
 
     def _tick(label: str) -> None:
@@ -303,19 +500,37 @@ def _v4_layout(
     T = int(num_txps)
     sizes = np.diff(boundaries)
 
+    if pre is not None and (
+        pre["A"] != A or pre["R"] != R or len(pre["counts"]) != T
+    ):
+        log.warning(
+            "v4 prebuild shape mismatch (A %d/%d, R %d/%d); building "
+            "monolithically", pre["A"], A, pre["R"], R,
+        )
+        pre = None
+
     use_balance = _balance.available()
     BCH = _balance.BAL_CHR
 
     # ---- read-side buckets (membership only; rows assigned below)
     rng_r = np.random.default_rng(3)
-    read_shapes, read_starts, read_row_parts, n_slots_r = _pow2_buckets(
-        sizes, rng_r, align_groups=True,
-    )
+    if pre is not None:
+        read_shapes, read_starts, read_row_parts, n_slots_r = (
+            _pow2_buckets_pre(pre["classes"], pre["max_size"], rng_r,
+                              align_groups=True)
+        )
+    else:
+        read_shapes, read_starts, read_row_parts, n_slots_r = _pow2_buckets(
+            sizes, rng_r, align_groups=True,
+        )
     row_space_r = sum(rp for rp, _ in read_shapes)
     _tick("read_buckets")
 
     # ---- transcript-side buckets (pow2 up to CAPK, then row-chunked)
-    counts = np.bincount(txp_id, minlength=T)
+    counts = (
+        pre["counts"] if pre is not None
+        else np.bincount(txp_id, minlength=T)
+    )
     rng_t = np.random.default_rng(5)
     small_mask = (counts > 0) & (counts <= CAPK)
     small_sizes = np.where(small_mask, counts, 0)
@@ -371,9 +586,17 @@ def _v4_layout(
             )
 
     # per-alignment rank within its transcript (native counting sort;
-    # the NumPy form costs an A-sized stable argsort + 4 more passes)
-    _rk = _balance.rank_by_key(txp_id, T)
-    if _rk is not None:
+    # the NumPy form costs an A-sized stable argsort + 4 more passes).
+    # With a prebuild the ranks arrived during the pack and ord2 is one
+    # scatter (the rank is the stable position)
+    _rk = None if pre is not None else _balance.rank_by_key(txp_id, T)
+    if pre is not None:
+        rank = pre["rank"]
+        run_start = np.zeros(T + 1, dtype=np.int64)
+        np.cumsum(counts, out=run_start[1:])
+        ord2 = np.empty(A, dtype=np.int64)
+        ord2[run_start[txp_id] + rank] = np.arange(A, dtype=np.int64)
+    elif _rk is not None:
         ord2, rank, run_start = _rk
     else:
         ord2 = np.argsort(txp_id, kind="stable")
@@ -923,13 +1146,14 @@ def _read_lvl_ids(read_shapes, read_starts, n_chunks: int,
 
 def _v4_finish(lay: dict, dtype: torch.dtype, device: torch.device,
                cache_key: Optional[str] = None,
-               timings: Optional[dict] = None) -> EmV4Data:
+               timings: Optional[dict] = None,
+               pointer_key: Optional[str] = None) -> EmV4Data:
     """Phase 2: construct the two GlobalRoutes and assemble the device
     state. The routes over the unified rounded space are partial
     injective maps: uncovered outputs (the bucket pads) come out ZERO,
     which is exactly the invariant both row-sum stages need. With
     `cache_key` the host-side products are persisted to the plan cache on
-    a background thread."""
+    a background thread, and the BAM pointer `pointer_key` after it."""
     sel = lay.get("route_sel")
     mfs = ({sel[0]: sel[1]} if sel is not None else _route_maxflows(
         lay["slot_of_aln"], lay["txp_slot_of_aln"], lay["NPAD"]))
@@ -965,7 +1189,8 @@ def _v4_finish(lay: dict, dtype: torch.dtype, device: torch.device,
         timings["finish.upload_tables"] = routes.upload_s
     if cache_key is not None:
         plan_cache.store_async(
-            cache_key, plan_cache.payload_from_build(lay, routes.host, seg_id)
+            cache_key, plan_cache.payload_from_build(lay, routes.host, seg_id),
+            pointer_key=pointer_key,
         )
     return assemble(lay, p_a, p_b, parts)
 

@@ -41,14 +41,18 @@ stage: `GlobalRoutePlan.expand_y1_batch` / `reduce_strided_batch` take a
 leading replicate axis (the replicate arm of `route_stage.py`), and
 `BatchTilePermute` takes `[B, n]` as B times its tiles.
 
-Not ported: `GlobalPermute`, `balanced_pad_routing` and `spread_roundrobin`
-(used by the v3 iteration only), and `_chunks_per_program`, which sizes
-grid programs for another memory hierarchy.
+`GlobalPermute` (with `balanced_pad_routing` and `spread_roundrobin`) is
+the v3 iteration's full bijection over an arbitrary-length array: two
+`BatchTilePermute`s (kernel K2) around a transpose of the quota tensor.
+
+Not ported: `_chunks_per_program`, which sizes grid programs for another
+memory hierarchy.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import threading
 import time
 from dataclasses import dataclass, field
@@ -177,16 +181,318 @@ class BatchTilePermute:
         return out.reshape(reps, n) if batched else out.reshape(-1)
 
 
-# ---------------------------------------------------------------------------
-# GlobalRoute: rectangular gather networks over arbitrary-length arrays
-# ---------------------------------------------------------------------------
-
 CH = 128 * LANES  # elements per chunk of 128 rows (16384)
 
 
 def _roundup(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
+
+# ---------------------------------------------------------------------------
+# GlobalPermute: a static permutation of an arbitrary-length array (v3)
+# ---------------------------------------------------------------------------
+
+def spread_roundrobin(vals: np.ndarray, chunk: int = CH) -> np.ndarray:
+    """Reorder slot ids so consecutive picks rotate across chunks: pairing
+    concentrated destinations with this order keeps per-(src,dst)-chunk
+    flows near uniform instead of an outer product of concentrations."""
+    vals = np.asarray(vals)
+    if len(vals) == 0:
+        return vals
+    ch = vals // chunk
+    order = np.argsort(ch, kind="stable")
+    sorted_vals = vals[order]
+    ch_sorted = ch[order]
+    starts = np.concatenate([[0], np.nonzero(np.diff(ch_sorted))[0] + 1])
+    gid = np.zeros(len(vals), dtype=np.int64)
+    gid[starts] = 1
+    gid = np.cumsum(gid) - 1
+    rank = np.arange(len(vals)) - starts[gid]
+    rr = np.argsort(rank * (ch_sorted.max() + 1) + ch_sorted, kind="stable")
+    return sorted_vals[rr]
+
+
+def _chunk_flows(src_chunk, dst_chunk, n_src: int, n_dst: int) -> np.ndarray:
+    """[n_src, n_dst] counts of the (src, dst) chunk pairs."""
+    cell = np.asarray(src_chunk, np.int64) * n_dst + np.asarray(dst_chunk)
+    return np.bincount(cell, minlength=n_src * n_dst).reshape(n_src, n_dst)
+
+
+def balanced_pad_routing(
+    out_idx: np.ndarray,
+    in_idx: np.ndarray,
+    n_pad: int,
+    chunk: int = CH,
+) -> np.ndarray:
+    """Complete `out[out_idx] = in_idx` to a bijection over [0, n_pad),
+    assigning the pad (out, in) pairs by a capacitated transportation
+    waterfill so the per-(src,dst)-chunk flow maximum stays as close to
+    the data flows' own maximum as supply and demand allow (naive pairings
+    of the free slots double the max flow, which inflates GlobalPermute's
+    quota Q)."""
+    perm = np.full(n_pad, -1, dtype=np.int64)
+    perm[out_idx] = in_idx
+    free_out = np.nonzero(perm < 0)[0]
+    used = np.zeros(n_pad, dtype=bool)
+    used[in_idx] = True
+    free_in = np.nonzero(~used)[0]
+    if len(free_out) == 0:
+        return perm
+    n_ch = n_pad // chunk
+    F = _chunk_flows(np.asarray(in_idx) // chunk, np.asarray(out_idx) // chunk,
+                     n_ch, n_ch)
+    P = np.bincount(free_out // chunk, minlength=n_ch)
+    supply0 = np.bincount(free_in // chunk, minlength=n_ch)
+
+    total = int(P.sum())
+
+    def try_fill(C):
+        """Exact feasibility of per-pair cap C as a max-flow instance:
+        source -> src chunks (cap = free inputs there), src -> dst edges
+        (cap = C - data flow), dst chunks -> sink (cap = pads needed).
+        Returns the pad-assignment matrix, or None if infeasible."""
+        from scipy.sparse import csr_matrix
+        from scipy.sparse.csgraph import maximum_flow
+
+        cap = np.maximum(C - F, 0)
+        n = 2 * n_ch + 2
+        src_nodes = 1 + np.arange(n_ch)
+        dst_nodes = 1 + n_ch + np.arange(n_ch)
+        rows = np.concatenate([
+            np.zeros(n_ch, np.int64),
+            np.repeat(src_nodes, n_ch),
+            dst_nodes,
+        ])
+        cols = np.concatenate([
+            src_nodes,
+            np.tile(dst_nodes, n_ch),
+            np.full(n_ch, n - 1, np.int64),
+        ])
+        caps = np.concatenate([supply0, cap.reshape(-1), P])
+        keep = caps > 0
+        g = csr_matrix(
+            (caps[keep].astype(np.int32), (rows[keep], cols[keep])), (n, n)
+        )
+        res = maximum_flow(g, 0, n - 1)
+        if res.flow_value < total:
+            return None
+        fl = res.flow.tocsr()[src_nodes][:, dst_nodes].toarray()
+        return np.maximum(fl, 0).astype(np.int64)
+
+    lo_c, hi_c = int(F.max()), int(F.max() + P.max() + 1)
+    best = None
+    while lo_c < hi_c:
+        C = (lo_c + hi_c) // 2
+        x = try_fill(C)
+        if x is not None:
+            best = x
+            hi_c = C
+        else:
+            lo_c = C + 1
+    if best is None:
+        best = try_fill(hi_c)
+    x = best
+
+    # materialize the pairing: per dst chunk, pull the assigned counts
+    # from each src chunk's queue of free inputs
+    o_in = np.argsort(free_in // chunk, kind="stable")
+    fi_sorted = free_in[o_in]
+    ptr = np.searchsorted(fi_sorted // chunk, np.arange(n_ch)).astype(np.int64)
+    o_out = np.argsort(free_out // chunk, kind="stable")
+    fo_sorted = free_out[o_out]
+    db = np.searchsorted(fo_sorted // chunk, np.arange(n_ch + 1))
+    for d in range(n_ch):
+        outs = fo_sorted[db[d] : db[d + 1]]
+        if len(outs) == 0:
+            continue
+        ins = np.empty(len(outs), dtype=np.int64)
+        pos = 0
+        for s in np.nonzero(x[:, d])[0]:
+            cnt = int(x[s, d])
+            ins[pos : pos + cnt] = fi_sorted[ptr[s] : ptr[s] + cnt]
+            ptr[s] += cnt
+            pos += cnt
+        perm[outs] = ins
+    return perm
+
+
+def _complete_bijection(tgt_slot, src_slot, n_slots: int) -> np.ndarray:
+    """tile_perm[tgt] = src, with the dead slots paired in order."""
+    tile_perm = np.full(n_slots, -1, dtype=np.int64)
+    tile_perm[tgt_slot] = src_slot
+    free_out = np.nonzero(tile_perm < 0)[0]
+    used_in = np.zeros(n_slots, dtype=bool)
+    used_in[src_slot] = True
+    tile_perm[free_out] = np.nonzero(~used_in)[0]
+    return tile_perm
+
+
+def _tile_plans(specs, rows: int) -> List[DeviceTilePlan]:
+    """`DeviceTilePlan.build` of each (tgt_slot, src_slot) chunk spec, in
+    order; the native edge coloring releases the GIL, so the chunks are
+    colored on up to 8 threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(spec):
+        return DeviceTilePlan.build(
+            _complete_bijection(*spec, rows * LANES), rows)
+
+    threads = min(8, os.cpu_count() or 1)
+    if threads <= 1 or len(specs) <= 1:
+        return [one(s) for s in specs]
+    with ThreadPoolExecutor(threads) as pool:
+        return list(pool.map(one, specs))
+
+
+@dataclass(frozen=True)
+class GlobalPermutePlan:
+    """The device half of a `GlobalPermute`: two batches of tile permutes
+    (kernel K2 on a CUDA tensor) around a transpose of the quota tensor."""
+
+    stage1: BatchTilePermute  # [n_src] tiles of R1 rows
+    stage3: BatchTilePermute  # [n_dst] tiles of R3 rows
+    n_in: int
+    n_out: int
+    n_src: int
+    n_dst: int
+    n_dst_pad: int
+    Q: int
+    R1: int
+    R3: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.stage1.device
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """`out[p] = x[perm[p]]` for a flat `x` of at most `n_in` values
+        (the rest are zeros): `[n_out]`."""
+        n_src, n_dst, Q = self.n_src, self.n_dst, self.Q
+        x_pad = torch.nn.functional.pad(x, (0, n_src * CH - x.shape[0]))
+        xg = x.new_zeros((n_src, self.R1 * LANES))
+        xg[:, :CH] = x_pad.view(n_src, CH)
+        y1 = self.stage1(xg.view(-1))
+        y1 = y1.view(n_src, self.n_dst_pad, Q)[:, :n_dst, :]
+        zg = x.new_zeros((n_dst, self.R3 * LANES))
+        zg[:, : n_src * Q].view(n_dst, n_src, Q).copy_(y1.permute(1, 0, 2))
+        y3 = self.stage3(zg.view(-1)).view(n_dst, self.R3 * LANES)
+        return y3[:, :CH].reshape(-1)[: self.n_out]
+
+
+class GlobalPermute:
+    """`out[p] = x[perm[p]]` for a fixed permutation over large arrays.
+
+    Three stages, all static:
+      1. per source chunk, a tile permute groups its elements by
+         destination chunk into a [n_dst_pad, Q] quota layout;
+      2. one transpose moves quota buckets between chunks;
+      3. per destination chunk, a tile permute produces the final order.
+
+    The host tables are the JAX package's (`GlobalPermute` there); `.plan`
+    holds them on `device` (`None` is the package default, `cuda`)."""
+
+    def __init__(self, perm: np.ndarray, n_in: int, device=None):
+        device = resolve_device(device)
+        perm = np.asarray(perm, dtype=np.int64)
+        N_out = len(perm)
+        assert len(np.unique(perm)) == N_out, "perm must be injective"
+        self.n_in = n_in
+        n_src = _roundup(n_in, CH) // CH
+        n_dst = _roundup(N_out, CH) // CH
+        # the tile plans need true bijections (the edge coloring requires
+        # a regular graph), so pad outputs are routed to the unused input
+        # slots; equalize the padded sizes
+        n_src = n_dst = max(n_src, n_dst)
+        N_out_pad = n_dst * CH
+        n_in_pad = n_src * CH
+        perm_pad = np.zeros(N_out_pad, dtype=np.int64)
+        perm_pad[:N_out] = perm
+        unused_in = np.setdiff1d(
+            np.arange(n_in_pad), perm, assume_unique=False
+        )
+        assert len(unused_in) == N_out_pad - N_out
+        # spread pad->pad routing across source chunks so it cannot
+        # dominate the per-(src,dst) quota
+        perm_pad[N_out:] = spread_roundrobin(unused_in)
+        self.n_out = N_out
+
+        d_of = np.arange(N_out_pad) // CH
+        s_of = perm_pad // CH
+        maxflow = int(_chunk_flows(s_of, d_of, n_src, n_dst).max())
+        # quota-layout sizing: [n_dst_pad, Q] per chunk must tile into
+        # [R1, 128] with R1 % 128 == 0, i.e. n_pad * Q % 16384 == 0.
+        # Rounding the chunk-count padding UP can legalize a much finer
+        # Q granularity; pick the (n_pad, Q) minimizing the grid
+        best = None
+        for gran in (64, 128, 256, 512, 1024):
+            npd = _roundup(max(n_src, n_dst), gran)
+            q_step = (LANES * LANES) // math.gcd(LANES * LANES, npd)
+            q = _roundup(maxflow, q_step)
+            if best is None or npd * q < best[0]:
+                best = (npd * q, npd, q)
+        _, npd, Q = best
+        self.n_src, self.n_dst = n_src, n_dst
+        self.n_src_pad = self.n_dst_pad = npd
+        self.Q = Q
+        R1 = npd * Q // LANES  # stage-1 grid rows per chunk
+        R3 = npd * Q // LANES
+        assert R1 % LANES == 0 and R3 % LANES == 0
+        if max(R1, R3) // LANES > 16:
+            # degenerate quota (too few chunks or extreme flow skew): the
+            # column stage would explode
+            raise ValueError(
+                f"GlobalPermute degenerate: H={max(R1, R3) // LANES} "
+                f"(Q={Q}, n_chunks={n_src}); use a plain gather instead"
+            )
+
+        # rank of each output within its (s, d) flow, ordered by p
+        order = np.lexsort((np.arange(N_out_pad), d_of, s_of))
+        sd = s_of[order] * n_dst + d_of[order]
+        starts = np.concatenate([[0], np.nonzero(np.diff(sd))[0] + 1])
+        group_id = np.zeros(N_out_pad, dtype=np.int64)
+        group_id[starts] = 1
+        group_id = np.cumsum(group_id) - 1
+        rank = np.zeros(N_out_pad, dtype=np.int64)
+        rank[order] = np.arange(N_out_pad) - starts[group_id]
+
+        # the output positions each chunk sources (stage 1) / receives
+        # (stage 3), ascending, as a scan per chunk would select them
+        by_s = np.argsort(s_of, kind="stable")
+        s_bounds = np.searchsorted(s_of[by_s], np.arange(n_src + 1))
+        # stage 1, src chunk s: slot d*Q + rank <- source slot perm % CH
+        specs1 = []
+        for s in range(n_src):
+            sel = by_s[s_bounds[s] : s_bounds[s + 1]]
+            specs1.append((d_of[sel] * Q + rank[sel], perm_pad[sel] % CH))
+        # stage 3, dst chunk d: input layout [n_src_pad, Q] (after the
+        # transpose), output = final order in slots [0, CH)
+        specs3 = []
+        for d in range(n_dst):
+            sel = np.arange(d * CH, (d + 1) * CH)
+            specs3.append((sel % CH, s_of[sel] * Q + rank[sel]))
+        self.R1, self.R3 = R1, R3
+        self.plan = GlobalPermutePlan(
+            stage1=BatchTilePermute.build(_tile_plans(specs1, R1),
+                                          device=device),
+            stage3=BatchTilePermute.build(_tile_plans(specs3, R3),
+                                          device=device),
+            n_in=self.n_in,
+            n_out=self.n_out,
+            n_src=self.n_src,
+            n_dst=self.n_dst,
+            n_dst_pad=self.n_dst_pad,
+            Q=self.Q,
+            R1=self.R1,
+            R3=self.R3,
+        )
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return self.plan(x)
+
+
+# ---------------------------------------------------------------------------
+# GlobalRoute: rectangular gather networks over arbitrary-length arrays
+# ---------------------------------------------------------------------------
 
 def route_maxflow(out_idx: np.ndarray, in_idx: np.ndarray,
                   n_pad: int, chunk: int = CH,

@@ -10,14 +10,23 @@ default `cuda`). There
 is no em/em_par split: the device EM is deterministic and uses the serial
 path's convergence guard (`niter > 50`), which is the parity target.
 
-Four EM formulations are ported: `segsum` (`ops/em.py`), `fast` and
+Five EM formulations are ported: `segsum` (`ops/em.py`), `fast` and
 `pallas` (`ops/em_fast.py`, the latter with the hand-written sorted-gather
-kernel), and `v4` (`ops/em_v4.py`, the routed iteration with its three
-hand-written kernels, a batch of bootstrap replicates being one program
-there). A run never changes formulation or device behind
-the caller's back: what is not ported raises `NotImplementedError`, a
-missing device or a kernel that does not build or launch raises, and so
-does a `v4` whose route geometry is not feasible.
+kernel), `v3` (`ops/em_v3.py`, the sorted gather and two GlobalPermutes of
+tile permutes; bootstrap replicates one after another) and `v4`
+(`ops/em_v4.py`, the routed iteration with its three hand-written kernels,
+a batch of bootstrap replicates being one program there). A run never
+changes formulation or device behind the caller's back: what is not
+ported raises `NotImplementedError`, a missing device or a kernel that
+does not build or launch raises, and so does a `v3` or `v4` whose route
+geometry is not feasible.
+
+With `--em-impl auto|v4` on one device `quantify_bulk_alignments_from_bam`
+hides the v4 layout's A-sized pre-work behind the BAM decode
+(`em_v4.V4Prebuild`, fed by the pack's `chunk_observer`;
+`OARFISH_PREBUILD=0` turns it off), and where a BAM pointer file of the
+plan cache names an entry for this BAM and filter set, reads that entry
+during the pack (`plan_cache.Prefetch`). Neither changes a result.
 """
 
 from __future__ import annotations
@@ -49,7 +58,13 @@ from ..ops.em import (
 )
 from ..ops import plan_cache
 from ..ops.em_fast import FastEmData, run_em_fast, run_em_fast_squarem
-from ..ops.em_v4 import EmV4Data, run_em_v4, run_em_v4_squarem
+from ..ops.em_v3 import EmV3Data, run_em_v3, run_em_v3_squarem
+from ..ops.em_v4 import (
+    EmV4Data,
+    V4Prebuild,
+    run_em_v4,
+    run_em_v4_squarem,
+)
 from ..utils.digest import LazyDigest, digest_from_header
 from .meta import get_json_info
 from .short_read import read_short_quant_vec
@@ -62,7 +77,7 @@ from .writers import (
 
 log = logging.getLogger("oarfish_tpu_torch")
 
-PORTED_IMPLS = ("segsum", "fast", "pallas", "v4")
+PORTED_IMPLS = ("segsum", "fast", "pallas", "v3", "v4")
 
 # Below this many alignments the v4 route geometry degenerates (the
 # build raises), so auto never tries it.
@@ -96,8 +111,6 @@ def choose_auto_impl(
 
 def check_ported(args: Args) -> None:
     """Raise for every option whose code path waits for a later port."""
-    if args.em_impl == "v3":
-        raise not_ported("--em-impl v3", "queue A item 7")
     check_one_device(args)
 
 
@@ -153,8 +166,13 @@ def perform_inference_and_write_output(
     args: Args,
     digest: dict,
     aln_time_s: float,
+    pre: Optional[dict] = None,
+    plan_hint=(None, None),
 ) -> np.ndarray:
-    """Shared inference + output tail (`bulk.rs:83-210`)."""
+    """Shared inference + output tail (`bulk.rs:83-210`). `pre` carries
+    the v4 layout inputs prebuilt during the streaming pack; `plan_hint`
+    is (plan-cache Prefetch, BAM pointer key) from
+    `quantify_bulk_alignments_from_bam`."""
     check_ported(args)
     device = resolve_device(args.device)
     dtype = resolve_em_dtype(args.em_dtype, device)
@@ -215,6 +233,7 @@ def perform_inference_and_write_output(
                 store.txp_id,
                 combined_weights(store, opts.model_coverage, dens_prob),
                 store.boundaries, T, dtype=dtype, device=device,
+                pre=pre, prefetch=plan_hint[0], pointer_key=plan_hint[1],
             )
         except ValueError as e:
             raise ValueError(
@@ -225,6 +244,27 @@ def perform_inference_and_write_output(
         log.info("v4 layout: %d big transcripts, %s middle", data.n_big,
                  "fused" if data.seg_id is not None else "unfused")
         run = run_em_v4_squarem if squarem else run_em_v4
+    elif impl == "v3":
+        t0 = time.time()
+        build_s: dict = {}
+        try:
+            data, read_order = EmV3Data.build(
+                store.txp_id,
+                combined_weights(store, opts.model_coverage, dens_prob),
+                store.boundaries, T, dtype=dtype, device=device,
+                timings=build_s,
+            )
+        except ValueError as e:
+            raise ValueError(
+                f"--em-impl v3 cannot route these {store.num_alignments} "
+                f"alignments ({e}); use --em-impl pallas"
+            ) from e
+        log.info("v3 routing built in %.1fs (%s)", time.time() - t0,
+                 ", ".join(f"{k} {v:.2f}s" for k, v in build_s.items()))
+        log.info("v3 layout: NPAD %d, %d chunks, Q %d / %d, R1 %d / %d, "
+                 "R3 %d / %d", data.npad, data.p1.n_src, data.p1.Q,
+                 data.p2.Q, data.p1.R1, data.p2.R1, data.p1.R3, data.p2.R3)
+        run = run_em_v3_squarem if squarem else run_em_v3
     elif impl == "segsum":
         data = build_em_inputs(
             store, T, opts.model_coverage, dens_prob, dtype, device
@@ -267,13 +307,26 @@ def perform_inference_and_write_output(
         )
         if read_order is not None:
             mult = mult[:, read_order]
-        breps, boot_iters = bootstrap_ops.run_replicates(
-            lambda i, m: run(
-                data, i, args.max_em_iter, args.convergence_thresh,
-                multiplicity=m,
-            ),
-            mult, init_t,
-        )
+        if impl == "v3":
+            # no batch arm: one replicate after another, as in the JAX
+            # package
+            def one_by_one(i, m):
+                counts_b, niter_b = run(
+                    data, i[0], args.max_em_iter, args.convergence_thresh,
+                    multiplicity=m[0],
+                )
+                return counts_b.unsqueeze(0), niter_b.unsqueeze(0)
+
+            breps, boot_iters = bootstrap_ops.run_replicates(
+                one_by_one, mult, init_t, batch=1)
+        else:
+            breps, boot_iters = bootstrap_ops.run_replicates(
+                lambda i, m: run(
+                    data, i, args.max_em_iter, args.convergence_thresh,
+                    multiplicity=m,
+                ),
+                mult, init_t,
+            )
         log.info(
             "%d bootstrap replicates in %.3fs, iterations %s",
             args.num_bootstraps,
@@ -299,6 +352,17 @@ def perform_inference_and_write_output(
     return counts
 
 
+def filter_fingerprint(opts: FilterOpts) -> str:
+    """The filter settings that change which alignments the pack keeps:
+    part of a BAM pointer's key (`plan_cache.bam_pointer_key`)."""
+    return (
+        f"{opts.five_prime_clip};{opts.three_prime_clip};"
+        f"{opts.score_threshold};{opts.min_aligned_fraction};"
+        f"{opts.min_aligned_len};{opts.which_strand};"
+        f"{opts.score_prob_denom}"
+    )
+
+
 def quantify_bulk_alignments_from_bam(args: Args, opts: FilterOpts) -> np.ndarray:
     """Alignment-mode entry (`bulk.rs:212-259`)."""
     from ..host.packer import pack_bam_fast
@@ -307,24 +371,69 @@ def quantify_bulk_alignments_from_bam(args: Args, opts: FilterOpts) -> np.ndarra
     check_ported(args)
     resolve_device(args.device)
 
+    # Hide the v4 layout's A-sized pre-work behind the streaming pack: a
+    # V4Prebuild thread takes the filtered CSR chunks as they land. Where
+    # this BAM with these filters ran before, the plan cache's entry is
+    # read during the pack too (checked against the packed CSR's own key
+    # before use). The prebuilder is a hedge: it keeps running until the
+    # prefetched entry is known to be readable, then stops.
+    prebuilder = prefetch = pointer_key = None
+    observer = None
+    if (
+        args.em_impl in ("auto", "v4")
+        and args.num_shards <= 1
+        and os.environ.get("OARFISH_PREBUILD") != "0"
+    ):
+        fp = filter_fingerprint(opts)
+        prefetch = plan_cache.prefetch_for_bam(args.alignments, fp)
+        pointer_key = plan_cache.bam_pointer_key(args.alignments, fp)
+        prebuilder = V4Prebuild()
+        pf_box = [prefetch]
+        hedge_done = [False]
+
+        def observer(packed):
+            # the pointer may also land mid-pack (an earlier run's store
+            # finishing): look again at every chunk (a stat and a tiny
+            # read) so that a late plan still overlaps most of the pack
+            if pf_box[0] is None:
+                pf_box[0] = plan_cache.prefetch_for_bam(args.alignments, fp)
+            pf = pf_box[0]
+            if pf is not None and not hedge_done[0] and pf.status() == "ok":
+                hedge_done[0] = True
+                prebuilder.abort(quiet=True)
+            if not hedge_done[0]:
+                prebuilder.observe(packed)
+
     t0 = time.time()
     pack_timings: dict = {}
-    header, store, coverage, _num_unmapped = pack_bam_fast(
-        args.alignments,
-        opts,
-        bin_width=args.bin_width,
-        # all threads go to the decoder: its pipeline mode overlaps the
-        # consumer phases itself
-        threads=max(args.threads, 1),
-        sort_check_num=args.sort_check_num,
-        keep_names=opts.write_assignment_probs,
-        timings=pack_timings,
-    )
+    try:
+        header, store, coverage, _num_unmapped = pack_bam_fast(
+            args.alignments,
+            opts,
+            bin_width=args.bin_width,
+            # all threads go to the decoder: its pipeline mode overlaps
+            # the consumer phases itself
+            threads=max(args.threads, 1),
+            sort_check_num=args.sort_check_num,
+            keep_names=opts.write_assignment_probs,
+            timings=pack_timings,
+            chunk_observer=observer,
+        )
+    except BaseException:
+        if prebuilder is not None:
+            prebuilder.abort()
+        raise
+    if prebuilder is not None:
+        prefetch = pf_box[0]
     verify_header(header, args.alignments)
     txps_name = header.ref_names
     txps_len = np.asarray(header.ref_lengths, dtype=np.int64)
     log.info("parsed reference information for %d transcripts.", len(txps_name))
     digest = {"bam_digest": LazyDigest(digest_from_header, txps_name, txps_len)}
+    t_pb = time.time()
+    pre = prebuilder.finish(len(txps_name)) if prebuilder else None
+    if os.environ.get("OARFISH_PHASE_TIMING"):
+        log.info("phase prebuild.finish %.3fs", time.time() - t_pb)
     aln_time_s = time.time() - t0
     log.info("Parsing of alignments from input took %.3fs", aln_time_s)
 
@@ -337,4 +446,6 @@ def quantify_bulk_alignments_from_bam(args: Args, opts: FilterOpts) -> np.ndarra
         args,
         digest,
         aln_time_s,
+        pre=pre,
+        plan_hint=(prefetch, pointer_key),
     )

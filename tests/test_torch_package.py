@@ -171,7 +171,9 @@ BAM = ["--alignments", "x.bam", "-o", "out", "--device", "cpu"]
 
 
 @pytest.mark.parametrize("argv,queue", [
-    (BAM + ["--em-impl", "v3"], "queue A item 7"),
+    # v3 is ported (queue A item 7): across several devices it still
+    # waits for item 6
+    (BAM + ["--em-impl", "v3", "--num-shards", "2"], "queue A item 6"),
     (BAM + ["--num-shards", "2"], "queue A item 6"),
     (BAM + ["--num-processes", "2"], "queue A item 6"),
     (BAM + ["--single-cell", "--num-shards", "2"], "queue A item 6"),
@@ -202,15 +204,15 @@ def test_raw_read_and_genome_modes_get_past_the_option_check(argv, tmp_path,
 
 
 def test_v4_is_ported_and_v3_is_not():
+    """Since queue A item 7 both routed formulations are ported: each gets
+    past the option check, and the run fails on the missing input."""
     from oarfish_tpu_torch.config import Args
 
-    assert "v4" in tbulk.PORTED_IMPLS and "v3" not in tbulk.PORTED_IMPLS
-    tbulk.check_ported(Args(em_impl="v4"))
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        tbulk.check_ported(Args(em_impl="v3"))
-    # past the option check: the run fails on the missing input instead
-    with pytest.raises((OSError, ValueError)):
-        torch_main(BAM + ["--em-impl", "v4"])
+    assert "v4" in tbulk.PORTED_IMPLS and "v3" in tbulk.PORTED_IMPLS
+    for impl in ("v4", "v3"):
+        tbulk.check_ported(Args(em_impl=impl))
+        with pytest.raises((OSError, ValueError)):
+            torch_main(BAM + ["--em-impl", impl])
 
 
 @pytest.mark.parametrize("item", [5, 6, 7])
@@ -225,11 +227,11 @@ def test_roadmap_has_the_queue_items_named_in_errors(item):
 
 def test_errors_cite_exactly_the_open_queue_items():
     """Every queue item an error cites is one the test above checks, and
-    single-cell (item 4) and the raw-read and genome drivers (item 5),
-    both ported, are cited no more."""
+    single-cell (item 4), the raw-read and genome modes (item 5) and the
+    v3 EM (item 7), all ported, are cited no more."""
     cited = {int(m) for p in port_sources()
              for m in re.findall(r"queue A item (\d+)", p.read_text())}
-    assert sorted(cited) == [6, 7]
+    assert sorted(cited) == [6]
 
 
 def test_process_count_from_the_environment_raises(monkeypatch):
