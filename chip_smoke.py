@@ -6,9 +6,10 @@
 needs one CUDA device and fails without it. It builds every hand-written
 kernel from the sources in this checkout, holds each against its plain
 PyTorch version on the card, and drives the port's main paths (bulk
-quantification of a transcriptome BAM; single-cell quantification of a
-CB-collated BAM; raw reads against a transcriptome and against a genome;
-a genome BAM) at full width through the entry points a user calls. One
+quantification of a transcriptome BAM, on one device, over read shards
+and over two processes; single-cell quantification of a CB-collated BAM;
+raw reads against a transcriptome and against a genome; a genome BAM) at
+full width through the entry points a user calls. One
 JSON object per phase goes to standard output:
 
   env            card name and power limit, torch/CUDA versions, which
@@ -84,6 +85,28 @@ JSON object per phase goes to standard output:
   covmodel_device_vs_host  the first CLI run's BAM packed again: the device
                  coverage model against the native host pass on that store
                  (rtol 1e-12), with both times
+  sharded        the read-sharded and multi-process EMs: (a) the bench
+                 store through `perform_inference_and_write_output` with
+                 `--em-impl v4 --num-shards 2` and 8 bootstrap replicates
+                 (one batch), then `--num-shards 4` (the point EM), every
+                 shard on this card: build seconds, iterations, EM
+                 seconds, ms an iteration, peak device memory, exact
+                 launches (D times a run's), mass within 1e-5, L1/R <
+                 2e-3 against em_full_width's unsharded `v4`; one m-step
+                 of each shard of the two-shard build, single and for 8
+                 replicates, bit-equal through the kernels and through
+                 their plain versions; (b) two processes of the CLI (gloo,
+                 one card) on the cli_e2e BAM and (c) on its two halves
+                 split on read boundaries (`{proc}`, with
+                 `--num-bootstraps 2`), `--em-impl segsum` with the coverage
+                 model and
+                 assignment probabilities, each against one in-process
+                 run of the whole: L1/R < 2e-3, mass, `.ambig_info.tsv`
+                 and `meta_info.json` equal, process 1 writes nothing
+                 (or, in (c), only its `part1.prob`), the parts' reads
+                 are the whole's, (c)'s 2 replicates carry the reads'
+                 mass; each process's wall, the all-reduces and their
+                 share of the EM seconds
   single_cell    a CB-collated BAM at `scripts/sc_e2e_bench.py`'s scale
                  (100,000 cells x 50 reads, T=30,000, ~2 alignments a
                  read) through the CLI with `--single-cell` on the card
@@ -142,7 +165,8 @@ and per batch of bootstrap replicates: a batch runs to its slowest
 replicate's count, all replicates in the same launches, which are counted
 a second time as launches of the replicate-axis arms. Under `v3` an
 m-step is one sorted gather and four tile permutes, for the run and for
-each bootstrap replicate one after another. The single-cell
+each bootstrap replicate one after another. Over D shards every shard
+launches a run's kernels (D times the counts). The single-cell
 runs launch none of these kernels, and that is checked too. The raw-read
 and genome runs end in the bulk tail: one sorted gather per m-step where
 it takes `pallas` (as it does at their sizes), none under `segsum`.
@@ -197,6 +221,7 @@ from oarfish_tpu_torch.ops.em import EmData, run_em_squarem, uniform_init
 from oarfish_tpu_torch.ops.em_dense import DenseCellEm, _m_step_dense
 from oarfish_tpu_torch.ops.em_fast import FastEmData
 from oarfish_tpu_torch.ops.static_permute import GlobalRoute
+from oarfish_tpu_torch.quant import bulk
 from oarfish_tpu_torch.quant.bulk import perform_inference_and_write_output
 
 # the JAX package is named in the kernels line, never imported
@@ -305,8 +330,9 @@ BGZF_EOF = bytes.fromhex(
 )
 
 
-def _compress_payload(fh, payload: np.ndarray, pool, level=1):
-    """BGZF-compress a uint8 payload array in 64KB blocks on `pool`."""
+def _compress_payload(fhs, payload: np.ndarray, pool, level=1):
+    """BGZF-compress a uint8 payload array in 64KB blocks on `pool`, into
+    the file `fhs` or each of the files `fhs`."""
     mv = memoryview(payload.tobytes())
     blocks = [mv[i: i + 0xFF00] for i in range(0, len(mv), 0xFF00)]
 
@@ -322,8 +348,10 @@ def _compress_payload(fh, payload: np.ndarray, pool, level=1):
         trailer = struct.pack("<II", zlib.crc32(b), len(b) & 0xFFFFFFFF)
         return header + comp + trailer
 
+    fhs = fhs if isinstance(fhs, (list, tuple)) else [fhs]
     for out in pool.map(one, blocks):
-        fh.write(out)
+        for fh in fhs:
+            fh.write(out)
 
 
 def _put_i32(buf, offs, vals):
@@ -339,11 +367,14 @@ def _put_u16(buf, offs, vals):
 
 
 def build_e2e_bam(path, R, T, seed=0, mean_k=MEAN_K, chunk_reads=100_000,
-                  threads=8):
+                  threads=8, parts=()):
     """Vectorized synthetic collated BAM: R reads, ~mean_k alignments
     each (all alignments of a read share its span, so the 0.95 score
     threshold retains nearly all), zipf-popular transcripts, primaries
-    carry SEQ. Returns the number of alignment records."""
+    carry SEQ. Returns the number of alignment records. With n paths in
+    `parts` the k-th chunk of reads also goes to the (k % n)-th of them
+    (the same compressed blocks), so they split the BAM's reads on read
+    boundaries, each with the whole header."""
     rng = np.random.default_rng(seed)
     t_len = rng.integers(2200, 12_000, size=T).astype(np.int64)
     text = "@HD\tVN:1.6\tSO:unsorted\n@PG\tID:minimap2\tPN:minimap2\n"
@@ -370,9 +401,15 @@ def build_e2e_bam(path, R, T, seed=0, mean_k=MEAN_K, chunk_reads=100_000,
     TAGS = 7  # AS:i:<i32>
 
     total_alns = 0
-    with open(path, "wb") as fh, ThreadPoolExecutor(threads) as tpool:
-        _compress_payload(fh, np.frombuffer(bytes(hdr), dtype=np.uint8), tpool)
+    with contextlib.ExitStack() as stack, ThreadPoolExecutor(threads) as tpool:
+        fh, *part_fhs = [stack.enter_context(open(p, "wb"))
+                         for p in (path, *parts)]
+        _compress_payload([fh, *part_fhs],
+                          np.frombuffer(bytes(hdr), dtype=np.uint8), tpool)
         for lo in range(0, R, chunk_reads):
+            dest = [fh]
+            if part_fhs:
+                dest.append(part_fhs[(lo // chunk_reads) % len(part_fhs)])
             hi = min(lo + chunk_reads, R)
             n_r = hi - lo
             sizes = rng.geometric(1.0 / mean_k, size=n_r).clip(1, 50)
@@ -424,8 +461,9 @@ def build_e2e_bam(path, R, T, seed=0, mean_k=MEAN_K, chunk_reads=100_000,
             buf[to + 1] = ord("S")
             buf[to + 2] = ord("i")
             _put_i32(buf, to + 3, score)
-            _compress_payload(fh, buf, tpool)
-        fh.write(BGZF_EOF)
+            _compress_payload(dest, buf, tpool)
+        for f in (fh, *part_fhs):
+            f.write(BGZF_EOF)
     return total_alns
 
 
@@ -834,6 +872,10 @@ class EmLogCapture(logging.Handler):
     SC_BUCKET = re.compile(r"sc bucket \((\d+), (\d+), (\d+)\): (\d+) cells, "
                            r"(\w+), (\d+) sub-batches of at most (\d+), "
                            r"([0-9.]+)s")
+    SHARDED_BUILD = re.compile(r"sharded v4 routing built in ([0-9.]+)s "
+                               r"\((\d+) shards")
+    SHARDED_EM = re.compile(r"sharded-v4 EM on \S+ \(\w+\) converged after "
+                            r"(\d+) iterations in ([0-9.]+)s")
 
     def __init__(self):
         super().__init__(level=logging.INFO)
@@ -851,6 +893,7 @@ class EmLogCapture(logging.Handler):
         self.records = []
         self.cache_hits = 0
         self.warnings = []
+        self.sharded = []
 
     def emit(self, record):
         msg = record.getMessage()
@@ -891,6 +934,10 @@ class EmLogCapture(logging.Handler):
             m = pattern.search(msg)
             if m:
                 self.sc.append((pattern, m.groups()))
+        for pattern in (self.SHARDED_BUILD, self.SHARDED_EM):
+            m = pattern.search(msg)
+            if m:
+                self.sharded.append((pattern, m.groups()))
         if "v4 plan cache hit" in msg:
             self.cache_hits += 1
         if record.levelno >= logging.WARNING:
@@ -1734,17 +1781,18 @@ def recording_v3_builds():
         em_v3.EmV3Data.build = staticmethod(real)
 
 
+def plain_permute(x, stage, replicates=1):
+    """The tile permute's plain version, as `static_permute` calls it."""
+    return tp.tile_permute_reference(x, stage.r1, stage.r2, stage.src,
+                                     stage.row, stage.R_in, stage.n_chunks,
+                                     replicates)
+
+
 @contextlib.contextmanager
 def plain_v3_kernels():
     """Run the v3 m-step's sorted gather and tile permutes through their
     plain versions on the card while the block runs."""
     gather, permute = em_v3.gather_rows, static_permute.tile_permute
-
-    def plain_permute(x, stage, replicates=1):
-        return tp.tile_permute_reference(x, stage.r1, stage.r2, stage.src,
-                                         stage.row, stage.R_in,
-                                         stage.n_chunks, replicates)
-
     em_v3.gather_rows = sg.gather_rows_reference
     static_permute.tile_permute = plain_permute
     try:
@@ -1974,6 +2022,11 @@ def phase_em_v3(csr, R, T, device, tmp: Path, capture, counts_em):
     return out, total
 
 
+def e2e_halves(tmp: Path) -> list:
+    """The cli_e2e BAM's two halves of the reads, for two processes."""
+    return [tmp / f"e2e_half.{i}.bam" for i in range(2)]
+
+
 def run_cli(bam: Path, out: Path, extra, device, capture):
     """One run of the CLI; returns (argv, counts, reads kept, meta, (impl,
     iterations, EM seconds), launches per kernel, wall seconds)."""
@@ -2039,7 +2092,8 @@ def phase_cli_e2e(R, T, device, tmp: Path, capture):
     """Returns (the phase's line, launches per kernel in the phase)."""
     bam = tmp / "e2e.bam"
     t0 = time.time()
-    n_alns = build_e2e_bam(bam, R, T)
+    # the `sharded` phase's two halves of the reads, written in the pass
+    n_alns = build_e2e_bam(bam, R, T, parts=e2e_halves(tmp))
     gen_s = time.time() - t0
     # the defaults: cuda, and `auto`, which takes v4 at this size
     runs, outputs, launched = {}, {}, dict.fromkeys(KERNELS, 0)
@@ -2097,7 +2151,8 @@ def phase_cli_e2e(R, T, device, tmp: Path, capture):
     res["mass_rel_err"] = float(
         abs(first["counts"].sum() - first["kept"]) / first["kept"])
     phase_covmodel_device_vs_host(bam, first["argv"], first["kept"], device)
-    bam.unlink()
+    # the BAM and its halves stay for the `sharded` phase, which removes
+    # them
 
     # an earlier path at a smaller size: `--em-impl pallas`, and the
     # sorted-gather kernel against its plain version on this BAM's own
@@ -2136,6 +2191,312 @@ def phase_cli_e2e(R, T, device, tmp: Path, capture):
                      check_s=round(time.time() - t0, 2)))
     emit("cli_e2e", **res)
     return res, {k: launched[k] + launched2[k] for k in KERNELS}
+
+
+@contextlib.contextmanager
+def plain_v4_kernels():
+    """Run the v4 m-step's tile permutes, route stages, fused middle and row
+    sums through their plain versions on the card while the block runs (the
+    row sums' plain version adds on the host)."""
+    saved = (static_permute.route_stage, static_permute.tile_permute,
+             em_v4.route_middle, em_v4.row_sums)
+    static_permute.route_stage = (
+        lambda x, stage, mul=None: stage.reference(x, mul=mul))
+    static_permute.tile_permute = plain_permute
+    em_v4.route_middle = rm.route_middle_reference
+    em_v4.row_sums = lambda x, what: rsm.plan_reference(x, rsm._plan(what))
+    try:
+        yield
+    finally:
+        (static_permute.route_stage, static_permute.tile_permute,
+         em_v4.route_middle, em_v4.row_sums) = saved
+
+
+@contextlib.contextmanager
+def recording_sharded_builds():
+    """Keep every sharded v4 state that `quant/bulk.py` builds while the
+    block runs."""
+    built = []
+    real = bulk.build_sharded_v4
+
+    def record(*args, **kwargs):
+        out = real(*args, **kwargs)
+        built.append(out[0])
+        return out
+
+    bulk.build_sharded_v4 = record
+    try:
+        yield built
+    finally:
+        bulk.build_sharded_v4 = real
+
+
+def sharded_m_steps_equal_plain(sh, device) -> dict:
+    """One m-step of each shard, single and for a batch of 8 replicates,
+    through the kernels and through their plain versions: the same bits,
+    f32. Launched after the main path's counts were read."""
+    rng = np.random.default_rng(5)
+    T = sh.num_txps
+    prev = torch.zeros(sh.t_space, device=device)
+    prev[:T] = torch.as_tensor(rng.uniform(0.5, 2.0, T), device=device)
+    prev_b = prev.expand(REPLICATES, -1).contiguous()
+    mult = sh.shard_multiplicity_batch(sample_multiplicities(
+        rng, REPLICATES, sh.num_reads))
+    t0 = time.time()
+    shards = []
+    for d, data in enumerate(sh.datas):
+        m_b = torch.as_tensor(mult[d], device=data.device)
+        single = em_v4.make_m_step(data, None)
+        batch = em_v4.make_m_step(data, m_b)
+        got = (single(prev), batch(prev_b))
+        with plain_v4_kernels():
+            want = (em_v4.make_m_step(data, None)(prev),
+                    em_v4.make_m_step(data, m_b)(prev_b))
+        for tag, g, w in zip(("single", "batch"), got, want):
+            bit_equal(f"shard {d} m-step ({tag})", g, w)
+        shards.append(dict(shard=d, bit_equal=True,
+                           batch_eligible=em_v4._batch_eligible(data)))
+    return dict(shards=shards, replicates=REPLICATES,
+                check_s=round(time.time() - t0, 2))
+
+
+def sharded_launches(D: int, m_steps: int, fused: bool, batched: int,
+                     eligible: bool) -> dict:
+    """Launches of D shards: each runs `m_steps` single m-steps and
+    `batched` m-steps of one batch of replicates (one program where its
+    layout allows it, else the replicates one after another)."""
+    one = v4_launches(m_steps, fused)
+    if batched:
+        extra = (v4_launches(batched, fused, batched) if eligible
+                 else v4_launches(REPLICATES * batched, fused))
+        one = {k: one[k] + extra[k] for k in one}
+    return {k: D * n for k, n in one.items()}
+
+
+# the CLI runs of several processes and their flags beside
+# PROCESS_FLAGS: (b) every process packs the whole BAM, (c) process i
+# packs `e2e_half.{i}.bam` and draws its part of 2 replicates (under
+# segment sums the one-process run would take ~54 s for 2 replicates as a
+# batch, so it draws none)
+PROCESS_RUNS = {"whole": [], "halves": ["--num-bootstraps", "2"]}
+PROCESS_FLAGS = ["--model-coverage", "--write-assignment-probs",
+                 "--em-impl", "segsum"]
+MULTI_EM = re.compile(r"multi-process EM \((\d+) processes, (\d+) shards"
+                      r"[^)]*\) converged after (\d+) iterations in "
+                      r"([0-9.]+)s; (\d+) all-reduces, ([0-9.]+)s in them")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_processes(bam: str, out_of, n: int, logs: Path, extra=(),
+                  timeout: int = 300) -> list:
+    """`n` processes of the port's CLI on this card, one gloo group at a
+    free local port, each logging into a file under `logs`; returns per
+    process (wall seconds, log). Every process is waited for, and killed
+    if it outlives `timeout`."""
+    root = Path(__file__).resolve().parent
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=str(root))
+    procs, files = [], []
+    t0 = time.time()
+    try:
+        for i in range(n):
+            files.append(open(logs / f"process{i}.log", "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "oarfish_tpu_torch", "--alignments",
+                 bam, "-o", str(out_of(i)), *PROCESS_FLAGS, *extra,
+                 "--coordinator",
+                 f"localhost:{port}", "--num-processes", str(n),
+                 "--process-id", str(i)],
+                env=env, stdout=subprocess.DEVNULL, stderr=files[-1],
+                cwd=root))
+        out = []
+        for i, (p, fh) in enumerate(zip(procs, files)):
+            p.wait(timeout=max(timeout - (time.time() - t0), 1))
+            fh.seek(0)
+            err = fh.read()
+            out.append((round(time.time() - t0, 2), err))
+            if p.returncode != 0:
+                raise RuntimeError(f"process {i} of {n} failed "
+                                   f"(rc {p.returncode}):\n{err[-3000:]}")
+        return out
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for fh in files:
+            fh.close()
+
+
+def same_meta(a: Path, b: Path, but=()) -> bool:
+    """`meta_info.json` equal but for paths, timings and the keys `but`."""
+    def load(path):
+        meta = json.loads(Path(path).read_text())
+        for k in ("alignment_time", "output", "alignments", *but):
+            meta.pop(k, None)
+        return meta
+
+    return load(a) == load(b)
+
+
+def prob_reads(path) -> list:
+    """The read names of a `.prob` file."""
+    with open(path) as fh:
+        n_txps, n_reads = (int(x) for x in fh.readline().split("\t"))
+        for _ in range(n_txps):
+            fh.readline()
+        reads = [ln.split("\t", 1)[0] for ln in fh]
+    assert len(reads) == n_reads, (path, len(reads), n_reads)
+    return reads
+
+
+def phase_sharded(csr, R, T, device, tmp: Path, capture, counts_v4,
+                  bam: Path):
+    """(a) The bench CSR through `perform_inference_and_write_output` with
+    `--num-shards 2` (`v4`, 8 replicates in one batch) and 4 (the point
+    EM), all shards on this card; (b) two processes of the CLI on `bam`
+    against one, (c) two processes each packing half of its reads.
+    Returns (the phase's line, launches per kernel of (a)). `bam` and its
+    halves (`e2e_halves`) are cli_e2e's, removed here."""
+    store, names, lens, coverage = bench_store(csr, R, T)
+    runs, launched = {}, dict.fromkeys(KERNELS, 0)
+    with recording_sharded_builds() as built:
+        for D, boots in ((2, REPLICATES), (4, 0)):
+            tag = f"v4_{D}_shards"
+            args = Args(output=tmp / tag, em_impl="v4", em_dtype="float32",
+                        num_bootstraps=boots, num_shards=D, seed=0)
+            n_sh, n_boot = len(capture.sharded), len(capture.boot)
+            torch.cuda.reset_peak_memory_stats(device)
+            reset_launch_counts()
+            t0 = time.time()
+            counts = perform_inference_and_write_output(
+                store, coverage, names, lens, resolve_filters(args), args,
+                {}, 0.0)
+            torch.cuda.synchronize(device)
+            wall = time.time() - t0
+            run_launched = launch_counts()
+            (_, (build_s, shards)), (_, (iters, em_s)) = (
+                capture.sharded[n_sh:n_sh + 2])
+            iters, em_s = int(iters), float(em_s)
+            sh = built[-1]
+            assert int(shards) == D == sh.num_shards
+            assert all(d.device == device for d in sh.datas)
+            fused = sh.datas[0].seg_id is not None
+            eligible = em_v4._batch_eligible(sh.datas[0])
+            batched = boot_s = boot_iters = None
+            if boots:
+                n_reps, boot_s, boot_iters = capture.boot[n_boot]
+                assert n_reps == boots == len(boot_iters) <= BOOT_BATCH
+                batched = max(boot_iters) + 1
+            want = sharded_launches(D, iters + 1, fused, batched or 0,
+                                    eligible)
+            assert run_launched == want, (tag, run_launched, want)
+            for k, n in run_launched.items():
+                launched[k] += n
+            assert np.isfinite(counts).all() and counts.shape == (T,)
+            mass = float(abs(counts.sum() - R) / R)
+            assert mass < 1e-5, f"{tag}: mass off by {mass}"
+            l1 = float(np.abs(counts - counts_v4).sum() / R)
+            assert l1 < L1_OVER_R_LIMIT, f"{tag} vs unsharded v4 L1/R {l1}"
+            runs[tag] = dict(
+                shards=D, build_s=float(build_s), iterations=iters,
+                em_s=em_s, ms_per_iteration=em_s / (iters + 1) * 1e3,
+                bootstrap_s=boot_s, bootstrap_iterations=boot_iters,
+                wall_s=round(wall, 3),
+                peak_device_memory_mb=round(
+                    torch.cuda.max_memory_allocated(device) / 2**20, 1),
+                geometry=list(sh.geometry[:2]) + list(sh.geometry[2]),
+                t_space=sh.t_space, fused_middle=fused,
+                batch_one_program=eligible, launches=run_launched,
+                mass_rel_err=mass, l1_over_R_vs_unsharded_v4=l1)
+            if boots:
+                import pyarrow.parquet as pq
+
+                reps = pq.read_table(str(tmp / tag) + ".infreps.pq")
+                reps = np.stack([np.asarray(reps[c])
+                                 for c in reps.column_names])
+                assert reps.shape == (boots, T) and np.isfinite(reps).all()
+                rep_mass = float(np.abs(reps.sum(axis=1) - R).max() / R)
+                assert rep_mass < 1e-5, f"replicate mass off by {rep_mass}"
+                runs[tag]["replicate_mass_rel_err"] = rep_mass
+        # one m-step of every shard of the two-shard build, single and
+        # batched, through the kernels and their plain versions
+        m_steps = sharded_m_steps_equal_plain(built[0], device)
+    del built, store
+    torch.cuda.empty_cache()
+
+    # (b) and (c): two processes of the CLI against one, on the card
+    t0 = time.time()
+    single = tmp / "mp_single"
+    argv, counts1, kept, meta1, _, _, wall1 = run_cli(
+        bam, single, PROCESS_FLAGS[2:], device, capture)
+    single_s = time.time() - t0
+    halves = e2e_halves(tmp)
+    procs = {}
+    for tag, extra in PROCESS_RUNS.items():
+        src = str(bam) if tag == "whole" else str(tmp / "e2e_half.{proc}.bam")
+        out = run_processes(src, lambda i, tag=tag: tmp / f"mp_{tag}{i}", 2,
+                            tmp, extra)
+        m = MULTI_EM.search(out[0][1])
+        assert m, out[0][1][-2000:]
+        n_proc, n_shards, iters, em_s, n_ar, ar_s = m.groups()
+        assert (int(n_proc), int(n_shards)) == (2, 2)
+        counts = read_quant(tmp / f"mp_{tag}0.quant")
+        l1 = float(np.abs(counts - counts1).sum() / R)
+        assert l1 < L1_OVER_R_LIMIT, f"{tag}: L1/R {l1} against one process"
+        mass = float(abs(counts.sum() - kept) / kept)
+        assert mass < 1e-5, f"{tag}: mass off by {mass}"
+        for ext in (".ambig_info.tsv",):
+            assert (Path(str(tmp / f"mp_{tag}0") + ext).read_bytes()
+                    == Path(str(single) + ext).read_bytes()), (tag, ext)
+        assert same_meta(tmp / f"mp_{tag}0.meta_info.json",
+                         str(single) + ".meta_info.json",
+                         but=("num_bootstraps",) if extra else ()), tag
+        # process 1 writes nothing but, with its own reads, its part of
+        # the assignment probabilities
+        own = sorted(p.name for p in tmp.glob(f"mp_{tag}1*"))
+        want_own = [] if tag == "whole" else [f"mp_{tag}1.part1.prob"]
+        assert own == want_own, (tag, own)
+        res = dict(walls_s=[w for w, _ in out], iterations=int(iters),
+                   em_s=float(em_s), all_reduces=int(n_ar),
+                   all_reduce_s=float(ar_s),
+                   all_reduce_share_of_em=float(ar_s) / float(em_s),
+                   l1_over_R_vs_one_process=l1, mass_rel_err=mass)
+        if tag == "halves":
+            parts = [prob_reads(tmp / f"mp_halves{i}.part{i}.prob")
+                     for i in range(2)]
+            whole = prob_reads(str(single) + ".prob")
+            assert sorted(parts[0] + parts[1]) == sorted(whole)
+            res["part_reads"] = [len(p) for p in parts]
+            import pyarrow.parquet as pq
+
+            reps = pq.read_table(tmp / "mp_halves0.infreps.pq")
+            reps = np.stack([np.asarray(reps[c]) for c in reps.column_names])
+            assert reps.shape == (2, T) and np.isfinite(reps).all()
+            # one multinomial over both processes' reads
+            rep_mass = float(np.abs(reps.sum(axis=1) - kept).max() / kept)
+            assert rep_mass < 1e-5, f"replicate mass off by {rep_mass}"
+            res["replicate_mass_rel_err"] = rep_mass
+        procs[tag] = res
+        for f in tmp.glob(f"mp_{tag}*"):
+            f.unlink()
+    for f in (*halves, bam):
+        f.unlink()
+    out = dict(R=R, T=T, dtype="float32", **runs, m_steps_vs_plain=m_steps,
+               launches=launched, one_process=dict(
+                   wall_s=round(wall1, 2), run_s=round(single_s, 2),
+                   reads_kept=kept),
+               **{
+                   f"processes_{k}": v for k, v in procs.items()})
+    emit("sharded", **out)
+    return out, launched
 
 
 def read_mtx(path: Path):
@@ -2712,6 +3073,9 @@ def main(argv=None) -> int:
         v3, launches_v3 = phase_em_v3(csr, R, T, device, tmp, capture,
                                       counts_em)
         cli, launches_cli = phase_cli_e2e(R, T, device, tmp, capture)
+        _, launches_sharded = phase_sharded(
+            csr, R, T, device, tmp, capture, counts_em["v4"],
+            tmp / "e2e.bam")
         phase_single_cell(device, tmp, capture)
         raw, launches_raw = phase_raw_reads(device, tmp, capture)
         (greads, gbam), (launches_greads, launches_gbam) = phase_genome(
@@ -2722,7 +3086,7 @@ def main(argv=None) -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
     by_path = {"em_full_width": launches_em, "em_v3": launches_v3,
-               "cli_e2e": launches_cli,
+               "cli_e2e": launches_cli, "sharded": launches_sharded,
                "raw_reads": launches_raw, "genome_reads": launches_greads,
                "genome_bam": launches_gbam}
     # the raw-read and genome runs end in the same tail: at their sizes it

@@ -8,10 +8,10 @@ ported: transcriptome-BAM bulk mode, single-cell mode (`--single-cell`),
 raw reads against a transcriptome (`--reads` with `--annotated` /
 `--novel` / `--index`), index building alone (`--only-index`), raw reads
 against a genome (`--reads --genome --annotation`) and genome BAMs
-(`--genome-alignments --annotation`). Options whose code waits for a
-later port raise `NotImplementedError` naming their ROADMAP.md queue
-item. The run is one process: the JAX package's multi-process
-environment is read and a count above one raises (`resolve_processes`).
+(`--genome-alignments --annotation`), each on one device, over
+`--num-shards` read shards, or over `--num-processes` processes joined
+by a gloo process group (`resolve_processes`, with the JAX package's
+environment fallbacks).
 """
 
 from __future__ import annotations
@@ -164,18 +164,18 @@ def build_parser() -> argparse.ArgumentParser:
         "slow-mixing data; the reference's plain EM is the default)",
     )
     p.add_argument("--num-shards", type=int, default=0,
-                   help="data-parallel device shards (0 = all local devices)")
+                   help="data-parallel read shards (0 = one per visible card)")
     p.add_argument(
         "--coordinator", default=None,
-        help="multi-host: coordinator address host:port (not ported yet)",
+        help="multi-process: the gloo coordinator's address host:port",
     )
     p.add_argument(
         "--num-processes", type=int, default=None,
-        help="multi-host: total process count (not ported yet)",
+        help="multi-process: total process count",
     )
     p.add_argument(
         "--process-id", type=int, default=None,
-        help="multi-host: this process's id, 0-based (not ported yet)",
+        help="multi-process: this process's id, 0-based",
     )
     p.add_argument("--seed", type=int, default=0)
     return p
@@ -297,33 +297,48 @@ def validate_modes(args: Args, parser: argparse.ArgumentParser) -> None:
 
 def resolve_processes(args: Args) -> None:
     """The process layout, with the JAX package's environment fallbacks
-    for absent flags (`OARFISH_NUM_PROCESSES`, and `OARFISH_COORDINATOR`
-    for the message). The port runs one process: a count above 1, from
-    either source, raises before any input is opened. A `{proc}`
-    placeholder in `--alignments` or a `--reads` path is then this
-    process's index, 0 (`OARFISH_PROCESS_ID` names no other in one
-    process); `args.sharded_inputs` stays unset, as it does in the JAX
-    package's single process."""
-    from .quant.bulk import not_ported
+    for absent flags (`OARFISH_COORDINATOR`, `OARFISH_NUM_PROCESSES`,
+    `OARFISH_PROCESS_ID`). Above one process this joins the gloo process
+    group (`parallel/multihost.initialize_distributed`) before any input is
+    opened. A `{proc}` placeholder in `--alignments` or a `--reads` path
+    is this process's index (0 in one process); where one was resolved
+    under several processes `args.sharded_inputs` is set, and each process
+    reads only its own part of the reads."""
+    from .parallel.multihost import initialize_distributed, process_index
 
-    num_processes = args.num_processes or int(
-        os.environ.get("OARFISH_NUM_PROCESSES") or 0)
-    if num_processes > 1:
-        coordinator = args.coordinator or os.environ.get("OARFISH_COORDINATOR")
-        raise not_ported(
-            f"the multi-process run of {num_processes} processes "
-            f"(coordinator {coordinator}; --num-processes or "
-            "OARFISH_NUM_PROCESSES)", "queue A item 6",
+    coordinator = args.coordinator or os.environ.get("OARFISH_COORDINATOR")
+    num_processes = args.num_processes or (
+        int(os.environ["OARFISH_NUM_PROCESSES"])
+        if os.environ.get("OARFISH_NUM_PROCESSES")
+        else None
+    )
+    process_id = (
+        args.process_id
+        if args.process_id is not None
+        else (
+            int(os.environ["OARFISH_PROCESS_ID"])
+            if os.environ.get("OARFISH_PROCESS_ID")
+            else None
         )
+    )
+    multi = (num_processes or 0) > 1
+    if multi:
+        initialize_distributed(coordinator, num_processes, process_id)
 
-    def proc0(path):
-        if path is None or "{proc}" not in str(path):
-            return path
-        return type(path)(str(path).replace("{proc}", "0"))
+    def _resolve_proc(p):
+        if p is None or "{proc}" not in str(p):
+            return p, False
+        pid = process_index() if multi else 0
+        return type(p)(str(p).replace("{proc}", str(pid))), True
 
-    args.alignments = proc0(args.alignments)
+    args.alignments, sh_a = _resolve_proc(args.alignments)
+    sh_r = False
     if args.reads:
-        args.reads = [proc0(p) for p in args.reads]
+        resolved = [_resolve_proc(p) for p in args.reads]
+        args.reads = [p for p, _ in resolved]
+        sh_r = any(s for _, s in resolved)
+    if (sh_a or sh_r) and multi:
+        args.sharded_inputs = True
 
 
 def main(argv=None) -> int:
@@ -349,9 +364,18 @@ def main(argv=None) -> int:
     except ValueError as e:
         parser.error(str(e))
 
-    from .quant.bulk import quantify_bulk_alignments_from_bam
+    from .parallel.multihost import shutdown_distributed
 
     resolve_processes(args)
+    try:
+        return run_mode(args, opts, log)
+    finally:
+        shutdown_distributed()
+
+
+def run_mode(args: Args, opts, log) -> int:
+    from .quant.bulk import quantify_bulk_alignments_from_bam
+
     if args.only_index:
         from .quant.raw_reads import only_index
 

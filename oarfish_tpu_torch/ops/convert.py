@@ -6,8 +6,11 @@ The fields of the JAX package's `EmData` (the JAX package's `ops/em.py`),
 `GlobalRoutePlan`s and `BatchTilePermute`s (the JAX package's
 `ops/em_v4.py`, `ops/static_permute.py`) come in as NumPy arrays plus the
 meta integers and go out as this package's dataclasses on a given device,
-so both packages can run on identical tables. This package's own `build`
-functions produce the same arrays.
+so both packages can run on identical tables. So do the sharded states:
+`ShardedCsr` (the JAX package's `parallel/sharded_em.py`) through
+`sharded_csr_from_numpy` and the stacked `ShardedV4.data` (the JAX
+package's `parallel/sharded_v4.py`) through `sharded_v4_from_jax`. This
+package's own `build` functions produce the same arrays.
 """
 
 from __future__ import annotations
@@ -171,3 +174,51 @@ def v4_data_from_jax(
                 else _tensor(seg_id, device, torch.int8)),
         **static,
     )
+
+
+SHARDED_CSR_ARRAYS = ("txp_id", "weights", "read_id", "txp_sort_perm",
+                      "txp_id_sorted", "shard_num_reads")
+
+
+def sharded_csr_from_numpy(fields: Mapping, read_ranges, num_txps: int,
+                           num_reads: int, r_pad: int):
+    """The port's `ShardedCsr` from the JAX package's: `fields` holds the
+    `[D, ...]` arrays of `SHARDED_CSR_ARRAYS`."""
+    from ..parallel.sharded_em import ShardedCsr
+
+    sh = ShardedCsr.__new__(ShardedCsr)
+    for k in SHARDED_CSR_ARRAYS:
+        setattr(sh, k, np.array(fields[k]))
+    sh.read_ranges = [tuple(int(x) for x in r) for r in read_ranges]
+    sh.num_shards = len(sh.read_ranges)
+    sh.num_txps, sh.num_reads = int(num_txps), int(num_reads)
+    sh.a_pad = sh.txp_id.shape[1]
+    sh.r_pad = int(r_pad)
+    return sh
+
+
+def sharded_v4_from_jax(
+    w_txp, p_a: Mapping, p_b: Mapping, t_in: Mapping, t_out: Mapping,
+    big_row_of_txp, big_row_offsets, seg_id: Optional[np.ndarray],
+    meta: Mapping, read_ranges, read_orders, dtype: torch.dtype, devices,
+):
+    """The port's `ShardedV4` from the JAX package's: every array argument
+    is the stacked field of its `data` (leading shard axis), the mappings as
+    `v4_data_from_jax` takes them with stacked tables; shard d goes to
+    `devices[d]`."""
+    from ..parallel.sharded_v4 import ShardedV4
+
+    def at(x, d):
+        if isinstance(x, Mapping):
+            return {k: at(v, d) for k, v in x.items()}
+        return x[d] if isinstance(x, np.ndarray) else x
+
+    datas = [
+        v4_data_from_jax(
+            at(w_txp, d), at(p_a, d), at(p_b, d), at(t_in, d), at(t_out, d),
+            at(big_row_of_txp, d), at(big_row_offsets, d),
+            None if seg_id is None else seg_id[d], meta, dtype, dev,
+        )
+        for d, dev in enumerate(devices)
+    ]
+    return ShardedV4.of_shards(datas, read_ranges, read_orders)

@@ -59,7 +59,12 @@ they land (`_v4_layout(pre=...)`), and `EmV4Data.build` takes a plan
 read during the pack (`plan_cache.Prefetch`) and writes the BAM's pointer
 file; neither changes a bit of the layout.
 
-Not ported: the envelope / canonical-shape code, the rectangular rebuild,
+`compute_envelope` / `merge_envelopes` and the `envelope=` arm of
+`_v4_layout` give the shards of a sharded build (`parallel/sharded_v4.py`)
+one set of bucket shapes and one `t_space`; `_v4_finish(geometry=...)`
+one route geometry.
+
+Not ported: the canonical-shape code, the rectangular rebuild,
 the environment switches of the JAX package's A/B work (each one's
 default is taken), and the sub-batches of four replicates that fit
 another memory budget.
@@ -105,7 +110,7 @@ def _pad128(n: int) -> int:
     return ((n + LANES - 1) // LANES) * LANES
 
 
-def _pow2_buckets(sizes: np.ndarray, shuffle_rng,
+def _pow2_buckets(sizes: np.ndarray, shuffle_rng, buckets=None,
                   align_groups: bool = False):
     """Group rows (reads or transcripts) by power-of-two size buckets
     (bucket K holds sizes in (K//2, K]). Returns
@@ -117,21 +122,27 @@ def _pow2_buckets(sizes: np.ndarray, shuffle_rng,
     With `align_groups` each bucket start is aligned to K*128 (its own
     group span), so no 128-row group ever straddles a route-chunk
     boundary — the invariant the fused middle kernel's in-chunk row
-    sums rely on (read side only; total waste < sum K*128 ~ tens of KB)."""
-    maxk = int(sizes.max()) if len(sizes) else 1
-    ks: List[int] = []
-    K = 1
-    while K < maxk:
-        ks.append(K)
-        K *= 2
-    ks.append(max(K, 1))
-    buckets = []
-    lo = 0
-    for K in ks:
-        n = int(np.count_nonzero((sizes > lo) & (sizes <= K)))
-        lo = K
-        if n:
-            buckets.append((K, _pad128(n)))
+    sums rely on (read side only; total waste < sum K*128 ~ tens of KB).
+
+    With `buckets` (a ((K, rows_pad), ...) envelope shared by the shards of
+    a sharded build, see `merge_envelopes`) the bucket list and padded row
+    counts are forced, possibly larger than this dataset needs; the extra
+    rows are dead (their slots stay all-zero)."""
+    if buckets is None:
+        maxk = int(sizes.max()) if len(sizes) else 1
+        ks: List[int] = []
+        K = 1
+        while K < maxk:
+            ks.append(K)
+            K *= 2
+        ks.append(max(K, 1))
+        buckets = []
+        lo = 0
+        for K in ks:
+            n = int(np.count_nonzero((sizes > lo) & (sizes <= K)))
+            lo = K
+            if n:
+                buckets.append((K, _pad128(n)))
     shapes = []
     starts = []
     row_parts = []
@@ -155,29 +166,34 @@ _POW2 = 1 << np.arange(63, dtype=np.int64)
 
 
 def _pow2_buckets_pre(class_rows: dict, max_size: int, shuffle_rng,
-                      align_groups: bool = False):
+                      buckets=None, align_groups: bool = False):
     """`_pow2_buckets` from prebuilt per-class member lists (ascending
     ids: the chunk-incremental path). Mirrors `_pow2_buckets` exactly,
-    including the order in which it draws from `shuffle_rng`, so the
-    layout is bit-identical to the monolithic build."""
-    maxk = max(int(max_size), 1)
-    ks: List[int] = []
-    K = 1
-    while K < maxk:
-        ks.append(K)
-        K *= 2
-    ks.append(max(K, 1))
-    buckets = [
-        (K, _pad128(len(class_rows[K])))
-        for K in ks
-        if len(class_rows.get(K, ())) > 0
-    ]
+    including the order in which it draws from `shuffle_rng` and the
+    `buckets` envelope, so the layout is bit-identical to the monolithic
+    build."""
+    if buckets is None:
+        maxk = max(int(max_size), 1)
+        ks: List[int] = []
+        K = 1
+        while K < maxk:
+            ks.append(K)
+            K *= 2
+        ks.append(max(K, 1))
+        buckets = [
+            (K, _pad128(len(class_rows[K])))
+            for K in ks
+            if len(class_rows.get(K, ())) > 0
+        ]
     shapes = []
     starts = []
     row_parts = []
     n_slots = 0
+    empty = np.empty(0, dtype=np.int64)
     for K, rows_pad in buckets:
-        rows = shuffle_rng.permutation(class_rows[K])
+        rows = class_rows.get(K, empty)
+        assert _pad128(len(rows)) <= rows_pad
+        rows = shuffle_rng.permutation(rows)
         if align_groups:
             span = K * LANES
             n_slots = ((n_slots + span - 1) // span) * span
@@ -322,6 +338,69 @@ def _tile_rows(n: int) -> int:
     return ((rows + LANES - 1) // LANES) * LANES
 
 
+def compute_envelope(txp_id, boundaries, num_txps) -> dict:
+    """Static-shape requirements of this dataset's v4 layout. Merging
+    envelopes across read shards (`merge_envelopes`) and passing the
+    result to every shard's layout (`_v4_layout(envelope=...)`) gives all
+    shards the same buckets, big-transcript rows and `t_space`, so their
+    partial counts add element by element (`parallel/sharded_v4.py`)."""
+    sizes = np.diff(np.asarray(boundaries, dtype=np.int64))
+    counts = np.bincount(
+        np.asarray(txp_id, dtype=np.int64), minlength=num_txps
+    )
+
+    def ladder(szs):
+        maxk = int(szs.max()) if len(szs) else 1
+        out = []
+        K = 1
+        lo = 0
+        while True:
+            n = int(np.count_nonzero((szs > lo) & (szs <= K)))
+            if n:
+                out.append((K, _pad128(n)))
+            if K >= maxk:
+                break
+            lo = K
+            K *= 2
+        return tuple(out)
+
+    read_buckets = ladder(sizes)
+    small = np.where((counts > 0) & (counts <= CAPK), counts, 0)
+    small_buckets = ladder(small) if small.any() else ()
+    big = counts[counts > CAPK]
+    n_big = int(len(big))
+    big_rows = int(np.ceil(big / CAPK).sum()) if n_big else 0
+    row_space_s = sum(rp for _, rp in small_buckets)
+    t_rows = _tile_rows(max(num_txps, row_space_s + n_big, 1))
+    return {
+        "read_buckets": read_buckets,
+        "small_buckets": small_buckets,
+        "big_rows_pad": _pad128(big_rows),
+        "n_big": n_big,
+        "t_rows": t_rows,
+    }
+
+
+def merge_envelopes(envs: List[dict]) -> dict:
+    """Pointwise max of per-shard envelopes (union of bucket Ks, max
+    padded rows per K)."""
+
+    def merge_buckets(key):
+        acc = {}
+        for e in envs:
+            for K, rp in e[key]:
+                acc[K] = max(acc.get(K, 0), rp)
+        return tuple(sorted(acc.items()))
+
+    return {
+        "read_buckets": merge_buckets("read_buckets"),
+        "small_buckets": merge_buckets("small_buckets"),
+        "big_rows_pad": max(e["big_rows_pad"] for e in envs),
+        "n_big": max(e["n_big"] for e in envs),
+        "t_rows": max(e["t_rows"] for e in envs),
+    }
+
+
 @dataclass(frozen=True)
 class EmV4Data:
     """Static device state for the dual-bucketed EM."""
@@ -370,10 +449,12 @@ class EmV4Data:
         """The transcript tail as one launch: the small buckets' row sums,
         each big transcript's consecutive rows of the big region added
         again (the second level), zeros to `t_space`: the vector that
-        `t_out` takes."""
+        `t_out` takes. The big transcripts that a sharded build's envelope
+        adds own no rows and come last: their sums are left to the zeros."""
+        o = self.big_row_offsets.cpu().numpy()
+        o = o[: np.searchsorted(o, o[-1]) + 1]
         return RowSumPlan.make(self.txp_sum_table, n_out=self.t_space,
-                               first=self.row_space_s,
-                               offsets=self.big_row_offsets.cpu().numpy())
+                               first=self.row_space_s, offsets=o)
 
     @cached_property
     def read_sum_table(self) -> RowSumTable:
@@ -470,9 +551,12 @@ def _v4_layout(
     num_txps: int,
     timings: Optional[dict] = None,
     pre: Optional[dict] = None,
+    envelope: Optional[dict] = None,
 ) -> dict:
     """Phase 1 of the v4 build: bucket layouts, slot maps, and the tiny
-    T-space tile permutes: everything except the two GlobalRoutes.
+    T-space tile permutes: everything except the two GlobalRoutes (whose
+    geometry a sharded build chooses from all shards' flows, see
+    `route_config` and `parallel/sharded_v4.py`).
 
     Row placement within buckets is flow-balanced (ops/balance.py) when
     the native placer is available: reads and small transcripts are
@@ -483,7 +567,14 @@ def _v4_layout(
 
     `pre` (from `V4Prebuild.finish`) replaces the read buckets' size
     classes, the transcript counts and the ranks within transcripts; one
-    whose A, R or T differ from this CSR's is ignored."""
+    whose A, R or T differ from this CSR's is ignored.
+
+    `envelope` (`compute_envelope` / `merge_envelopes`) forces the read
+    and small-transcript buckets, the big-transcript slots and rows and
+    the tile rows of T space: the shards of a sharded build then share
+    them. Rows the envelope adds are dead (all-zero slots), and the
+    mean-flow rule that skips the balance passes is not applied (as in
+    the JAX package)."""
     _t_last = [time.perf_counter()]
 
     def _tick(label: str) -> None:
@@ -517,11 +608,14 @@ def _v4_layout(
     if pre is not None:
         read_shapes, read_starts, read_row_parts, n_slots_r = (
             _pow2_buckets_pre(pre["classes"], pre["max_size"], rng_r,
+                              envelope["read_buckets"] if envelope else None,
                               align_groups=True)
         )
     else:
         read_shapes, read_starts, read_row_parts, n_slots_r = _pow2_buckets(
-            sizes, rng_r, align_groups=True,
+            sizes, rng_r,
+            envelope["read_buckets"] if envelope else None,
+            align_groups=True,
         )
     row_space_r = sum(rp for rp, _ in read_shapes)
     _tick("read_buckets")
@@ -534,9 +628,10 @@ def _v4_layout(
     rng_t = np.random.default_rng(5)
     small_mask = (counts > 0) & (counts <= CAPK)
     small_sizes = np.where(small_mask, counts, 0)
+    env_small = envelope["small_buckets"] if envelope else None
     small_shapes, small_starts, small_row_parts, n_small_slots = (
-        _pow2_buckets(small_sizes, rng_t)
-        if small_mask.any()
+        _pow2_buckets(small_sizes, rng_t, env_small)
+        if (small_mask.any() or env_small)
         else ([], [], [], 0)
     )
     row_space_s = sum(rp for rp, _ in small_shapes)
@@ -544,7 +639,10 @@ def _v4_layout(
 
     big_txps = np.nonzero(counts > CAPK)[0]
     big_txps = rng_t.permutation(big_txps)
-    n_big_real = n_big = len(big_txps)
+    n_big_real = len(big_txps)
+    # the envelope may force more big slots and rows than this dataset
+    # has; the extra entries own no rows and no transcript positions
+    n_big = max(n_big_real, envelope["n_big"]) if envelope else n_big_real
     big_chunks = (
         np.ceil(counts[big_txps] / CAPK).astype(np.int64)
         if n_big_real
@@ -552,8 +650,11 @@ def _v4_layout(
     )
     n_big_rows = int(big_chunks.sum())
     big_rows_pad = _pad128(n_big_rows)
+    if envelope:
+        big_rows_pad = max(big_rows_pad, envelope["big_rows_pad"])
     big_off_log = np.zeros(n_big + 1, dtype=np.int64)
     np.cumsum(big_chunks, out=big_off_log[1 : n_big_real + 1])
+    big_off_log[n_big_real + 1 :] = big_off_log[n_big_real]
     big_row_offsets = big_off_log
     big_row_of_txp = np.zeros(big_rows_pad, dtype=np.int64)
     if n_big_real:
@@ -572,7 +673,7 @@ def _v4_layout(
     # CR=256 chunking is <= 56 (128 is then >= mean + 6-7 sigma even
     # against the big-region's pinned full rows). A miss costs only a
     # larger Q (slower EM iterations), never correctness.
-    if use_balance:
+    if use_balance and envelope is None:
         _chr_est = 256 * LANES
         _n_chk_est = max(
             -(-max(n_slots_r, n_slots_t) // _chr_est), 1
@@ -1001,6 +1102,8 @@ def _v4_layout(
 
     # ---- tiny T-space tile permutes
     t_rows = _tile_rows(max(T, row_space_s + n_big, 1))
+    if envelope:
+        t_rows = max(t_rows, envelope["t_rows"])
     t_space = t_rows * LANES
     # t_in: out[row pos] = prev[small txp of that row], then the big
     # txps as a dense block after the small row space
@@ -1147,17 +1250,23 @@ def _read_lvl_ids(read_shapes, read_starts, n_chunks: int,
 def _v4_finish(lay: dict, dtype: torch.dtype, device: torch.device,
                cache_key: Optional[str] = None,
                timings: Optional[dict] = None,
-               pointer_key: Optional[str] = None) -> EmV4Data:
+               pointer_key: Optional[str] = None,
+               geometry: Optional[Tuple] = None) -> EmV4Data:
     """Phase 2: construct the two GlobalRoutes and assemble the device
     state. The routes over the unified rounded space are partial
     injective maps: uncovered outputs (the bucket pads) come out ZERO,
     which is exactly the invariant both row-sum stages need. With
     `cache_key` the host-side products are persisted to the plan cache on
-    a background thread, and the BAM pointer `pointer_key` after it."""
-    sel = lay.get("route_sel")
-    mfs = ({sel[0]: sel[1]} if sel is not None else _route_maxflows(
-        lay["slot_of_aln"], lay["txp_slot_of_aln"], lay["NPAD"]))
-    CR, NPAD, geo = route_config(mfs, lay["NPAD"])
+    a background thread, and the BAM pointer `pointer_key` after it.
+    `geometry` forces the (chunk_rows, npad, (npd, Q)) of `route_config`,
+    as a sharded build does with the one its shards share."""
+    if geometry is not None:
+        CR, NPAD, geo = geometry
+    else:
+        sel = lay.get("route_sel")
+        mfs = ({sel[0]: sel[1]} if sel is not None else _route_maxflows(
+            lay["slot_of_aln"], lay["txp_slot_of_aln"], lay["NPAD"]))
+        CR, NPAD, geo = route_config(mfs, lay["NPAD"])
     t_last = [time.perf_counter()]
 
     def tick(label: str) -> None:

@@ -15,13 +15,22 @@ Five EM formulations are ported: `segsum` (`ops/em.py`), `fast` and
 kernel), `v3` (`ops/em_v3.py`, the sorted gather and two GlobalPermutes of
 tile permutes; bootstrap replicates one after another) and `v4`
 (`ops/em_v4.py`, the routed iteration with its three hand-written kernels,
-a batch of bootstrap replicates being one program there). A run never
-changes formulation or device behind the caller's back: what is not
-ported raises `NotImplementedError`, a missing device or a kernel that
-does not build or launch raises, and so does a `v3` or `v4` whose route
-geometry is not feasible.
+a batch of bootstrap replicates being one program there). With
+`--num-shards > 1` the reads are cut into shards (`parallel/`): `v4`
+(`auto` included) runs the sharded v4 EM, its bootstrap replicates as
+batches; another formulation without bootstrap replicates runs the sharded
+segment-sum EM; another with replicates runs on one device, and a log line
+says that `--num-shards` was not used. Under several processes
+(`--num-processes`) every process runs the sharded segment-sum EM over its
+shard, with one all-reduce per m-step, and process 0 writes; with `{proc}`
+inputs each process packed only its own reads
+(`_sharded_input_inference_and_write`). A run never changes formulation or
+device behind the caller's back: a missing device, a process group that
+cannot form, or a kernel that does not build or launch raises, and so does
+a `v3`, `v4` or sharded `v4` whose route geometry is not feasible.
 
-With `--em-impl auto|v4` on one device `quantify_bulk_alignments_from_bam`
+With `--em-impl auto|v4` on one device in one process
+`quantify_bulk_alignments_from_bam`
 hides the v4 layout's A-sized pre-work behind the BAM decode
 (`em_v4.V4Prebuild`, fed by the pack's `chunk_observer`;
 `OARFISH_PREBUILD=0` turns it off), and where a BAM pointer file of the
@@ -65,6 +74,21 @@ from ..ops.em_v4 import (
     run_em_v4,
     run_em_v4_squarem,
 )
+from ..parallel.multihost import (
+    allgather_hosts,
+    global_data_mesh,
+    process_count,
+    process_index,
+    sharded_em_global,
+    sharded_em_global_local,
+    split_bootstrap_multiplicities,
+)
+from ..parallel.sharded_em import all_reduce_stats, shard_devices, sharded_em
+from ..parallel.sharded_v4 import (
+    build_sharded_v4,
+    make_sharded_v4_runner,
+    sharded_v4_bootstrap,
+)
 from ..utils.digest import LazyDigest, digest_from_header
 from .meta import get_json_info
 from .short_read import read_short_quant_vec
@@ -84,13 +108,6 @@ PORTED_IMPLS = ("segsum", "fast", "pallas", "v3", "v4")
 V4_MIN_ALNS = 1_000_000
 
 
-def not_ported(what: str, queue_item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to oarfish_tpu_torch yet "
-        f"(ROADMAP.md, {queue_item})"
-    )
-
-
 def choose_auto_impl(
     device_type: str, num_alignments: int, max_em_iter: int,
     num_bootstraps: int,
@@ -107,20 +124,6 @@ def choose_auto_impl(
     if num_alignments >= V4_MIN_ALNS and expected_iters >= 150:
         return "v4"
     return "pallas"
-
-
-def check_ported(args: Args) -> None:
-    """Raise for every option whose code path waits for a later port."""
-    check_one_device(args)
-
-
-def check_one_device(args: Args) -> None:
-    """Raise for a run across several devices or processes."""
-    if args.num_shards > 1 or (args.num_processes or 0) > 1:
-        raise not_ported(
-            "the sharded / multi-process EM (--num-shards > 1, "
-            "--num-processes > 1)", "queue A item 6",
-        )
 
 
 def combined_weights(
@@ -173,10 +176,27 @@ def perform_inference_and_write_output(
     the v4 layout inputs prebuilt during the streaming pack; `plan_hint`
     is (plan-cache Prefetch, BAM pointer key) from
     `quantify_bulk_alignments_from_bam`."""
-    check_ported(args)
     device = resolve_device(args.device)
     dtype = resolve_em_dtype(args.em_dtype, device)
     log.info("discard table:\n%s", store.discard.to_table())
+
+    multi = process_count() > 1
+    if args.sharded_inputs and multi:
+        if args.use_kde:
+            log.warning(
+                "--use-kde with sharded ingest builds the KDE from "
+                "this process's reads only"
+            )
+        if opts.model_coverage:
+            # the coverage model is a global per-transcript statistic:
+            # sum the bin accumulators across processes before evaluating
+            # it (the bin layout depends only on the transcript lengths)
+            def _gather_f64(a):
+                g = allgather_hosts(np.ascontiguousarray(a).view(np.uint8))
+                return g.view(np.float64).sum(axis=0)
+
+            coverage.bins = _gather_f64(coverage.bins)
+            coverage.total_weight = _gather_f64(coverage.total_weight)
 
     dens_prob = None
     if args.use_kde:
@@ -208,6 +228,12 @@ def perform_inference_and_write_output(
     if args.short_quant is not None:
         init = read_short_quant_vec(args.short_quant, txps_name)
 
+    if multi:
+        return _multiprocess_inference_and_write(
+            store, txps_name, txps_len, opts, args, digest, aln_time_s,
+            dens_prob, init, dtype, device,
+        )
+
     impl = args.em_impl
     if impl == "auto":
         impl = choose_auto_impl(
@@ -217,6 +243,14 @@ def perform_inference_and_write_output(
         log.info("em-impl auto -> %s", impl)
     if impl not in PORTED_IMPLS:
         raise ValueError(f"unknown --em-impl {impl!r}")
+    if args.num_shards > 1:
+        if impl == "v4" or args.num_bootstraps == 0:
+            return _sharded_inference_and_write(
+                store, txps_name, txps_len, opts, args, digest, aln_time_s,
+                dens_prob, init, dtype, device, v4=impl == "v4",
+            )
+        log.info("--num-shards %d not used: --em-impl %s with bootstrap "
+                 "replicates runs on one device", args.num_shards, impl)
 
     T = len(txps_name)
     squarem = args.em_accel == "squarem"
@@ -335,20 +369,250 @@ def perform_inference_and_write_output(
         )
         write_infrep_file(args.output, breps)
 
+    write_probs(args, args.output, store, counts, txps_name, opts)
+
+    # a plan stored by this run is on disk before the process ends
+    plan_cache.wait_for_stores()
+    return counts
+
+
+def write_probs(args: Args, prefix, store, counts, txps_name,
+                opts: FilterOpts) -> None:
+    """`--write-assignment-probs`, when asked for, to `prefix`."""
     if args.write_assignment_probs is not None:
         write_out_prob(
-            args.output,
-            store,
-            counts,
-            txps_name,
-            args.display_thresh,
+            prefix, store, counts, txps_name, args.display_thresh,
             opts.model_coverage,
             compressed=args.write_assignment_probs
             == ReadAssignmentProbOut.COMPRESSED,
         )
 
-    # a plan stored by this run is on disk before the process ends
-    plan_cache.wait_for_stores()
+
+def host_init(init: Optional[np.ndarray], T: int, num_reads: int):
+    """The EM's start on the host: the caller's abundances, else uniform
+    `num_reads / T` (`em.rs:160-167`)."""
+    if init is not None:
+        return np.asarray(init, dtype=np.float64)
+    return np.full(T, num_reads / T)
+
+
+def _sharded_inference_and_write(
+    store, txps_name, txps_len, opts, args, digest, aln_time_s, dens_prob,
+    init, dtype, device, v4: bool,
+) -> np.ndarray:
+    """`--num-shards > 1` in one process: the reads cut into shards, shard
+    d on the d % n-th visible card (all on `device` for the CPU). With
+    `v4` the sharded routed EM, in `dtype` as the JAX package runs it, and
+    its bootstrap replicates as batches; else the sharded segment-sum EM
+    (no replicates: the caller keeps those on one device)."""
+    T = len(txps_name)
+    w = combined_weights(store, opts.model_coverage, dens_prob)
+    init_arr = host_init(init, T, store.num_reads)
+    devices = shard_devices(device, args.num_shards)
+    breps = None
+    t0 = time.time()
+    if v4:
+        try:
+            sh, mesh = build_sharded_v4(
+                store.txp_id, w, store.boundaries, T, devices=devices,
+                num_shards=args.num_shards, dtype=dtype,
+            )
+        except ValueError as e:
+            raise ValueError(
+                f"sharded --em-impl v4 cannot route these "
+                f"{store.num_alignments} alignments over {args.num_shards} "
+                f"shards ({e}); use fewer shards or --em-impl segsum"
+            ) from e
+        log.info("sharded v4 routing built in %.1fs (%d shards, layouts "
+                 "%.1fs)", time.time() - t0, sh.num_shards, sh.layout_s)
+        log.info("v4 layout: %d big transcripts, %s middle",
+                 sh.datas[0].n_big,
+                 "fused" if sh.datas[0].seg_id is not None else "unfused")
+        run = make_sharded_v4_runner(mesh, args.max_em_iter,
+                                     accel=args.em_accel)
+        t0 = time.time()
+        init_t = torch.as_tensor(init_arr, device=mesh.devices[0]).to(dtype)
+        counts_t, niter = run(sh, init_t, args.convergence_thresh)
+        counts = counts_t.double().cpu().numpy()
+        log.info("sharded-v4 EM on %s (%s) converged after %d iterations "
+                 "in %.3fs", device, str(dtype).replace("torch.", ""),
+                 int(niter), time.time() - t0)
+        if args.num_bootstraps > 0:
+            rng = np.random.default_rng(args.seed)
+            mult = bootstrap_ops.sample_multiplicities(
+                rng, args.num_bootstraps, store.num_reads
+            )
+            t0 = time.time()
+            breps, boot_iters = sharded_v4_bootstrap(
+                sh, mesh, init_arr, mult, max_iter=args.max_em_iter,
+                convergence_thresh=args.convergence_thresh, dtype=dtype,
+                batch=bootstrap_ops.BOOT_BATCH, accel=args.em_accel,
+            )
+            log.info("%d bootstrap replicates in %.3fs, iterations %s",
+                     args.num_bootstraps, time.time() - t0,
+                     boot_iters.tolist())
+    else:
+        counts, niter = sharded_em(
+            store.txp_id, w, store.boundaries, T, init_arr,
+            max_iter=args.max_em_iter,
+            convergence_thresh=args.convergence_thresh, dtype=dtype,
+            devices=devices, num_shards=args.num_shards,
+            accel=args.em_accel,
+        )
+        log.info("sharded EM on %s (%s) converged after %d iterations in "
+                 "%.3fs", device, str(dtype).replace("torch.", ""), niter,
+                 time.time() - t0)
+    unique, total = get_aux_counts(store, T)
+    info = get_json_info(args, opts, store.discard, digest, aln_time_s)
+    write_output(args.output, info, txps_name, txps_len, counts, unique, total)
+    if breps is not None:
+        write_infrep_file(args.output, breps)
+    write_probs(args, args.output, store, counts, txps_name, opts)
+    return counts
+
+
+def _multiprocess_inference_and_write(
+    store, txps_name, txps_len, opts, args, digest, aln_time_s,
+    dens_prob, init, dtype, device,
+) -> np.ndarray:
+    """Several processes: every process runs the sharded segment-sum EM
+    over its shard position, with one all-reduce of the partial counts per
+    m-step, and process 0 alone writes the outputs. With `{proc}` inputs
+    (`args.sharded_inputs`) each process packed only its own reads
+    (`_sharded_input_inference_and_write`); otherwise every process packed
+    the same BAM and takes the shard of its position. Bootstrap replicates
+    run on process 0's device alone, through the segment-sum EM."""
+    if args.sharded_inputs:
+        return _sharded_input_inference_and_write(
+            store, txps_name, txps_len, opts, args, digest, aln_time_s,
+            dens_prob, init, dtype, device,
+        )
+
+    T = len(txps_name)
+    w = combined_weights(store, opts.model_coverage, dens_prob)
+    init_arr = host_init(init, T, store.num_reads)
+    mesh = global_data_mesh(device)
+    t0 = time.time()
+    calls0, wait0 = all_reduce_stats["calls"], all_reduce_stats["seconds"]
+    counts, niter = sharded_em_global(
+        store.txp_id, w, store.boundaries, T, init_arr,
+        max_iter=args.max_em_iter,
+        convergence_thresh=args.convergence_thresh,
+        dtype=dtype, mesh=mesh, accel=args.em_accel,
+    )
+    log_multiprocess_em(mesh, "", niter, time.time() - t0, calls0, wait0)
+    if process_index() != 0:
+        return counts
+    unique, total = get_aux_counts(store, T)
+    info = get_json_info(args, opts, store.discard, digest, aln_time_s)
+    write_output(args.output, info, txps_name, txps_len, counts, unique, total)
+    if args.num_bootstraps > 0:
+        # replicates run on process 0's device; cheap next to the main EM
+        data = build_em_inputs(store, T, opts.model_coverage, dens_prob,
+                               dtype, device)
+        breps = bootstrap_ops.bootstrap(
+            data, args.num_bootstraps,
+            max_iter=args.max_em_iter,
+            convergence_thresh=args.convergence_thresh,
+            init_abundances=init,
+            seed=args.seed,
+            accel=args.em_accel,
+        )
+        write_infrep_file(args.output, np.asarray(breps))
+    write_probs(args, args.output, store, counts, txps_name, opts)
+    return counts
+
+
+def log_multiprocess_em(mesh, ingest: str, niter: int, seconds: float,
+                        calls0: int, wait0: float) -> None:
+    log.info(
+        "multi-process EM (%d processes, %d shards%s) converged after %d "
+        "iterations in %.3fs; %d all-reduces, %.3fs in them",
+        mesh.num_processes, mesh.num_shards, ingest, niter, seconds,
+        all_reduce_stats["calls"] - calls0,
+        all_reduce_stats["seconds"] - wait0,
+    )
+
+
+def _sharded_input_inference_and_write(
+    store, txps_name, txps_len, opts, args, digest, aln_time_s,
+    dens_prob, init, dtype, device,
+) -> np.ndarray:
+    """Distributed ingest: this process's `store` holds only its own reads
+    (disjoint across processes). The EM runs over all processes with shard
+    shapes agreed across them; the global read count seeds the uniform
+    init; the per-transcript aux counts and the discard counters are
+    gathered and summed before process 0 writes. Bootstrap replicates are
+    jointly one global multinomial through the splitting property
+    (`split_bootstrap_multiplicities`). `--write-assignment-probs` writes
+    one part file per process (`P.part{i}.prob[.lz4]`), since read names
+    live only on their owner."""
+    import dataclasses
+
+    from ..host.filters import DiscardTable
+
+    T = len(txps_name)
+    w = combined_weights(store, opts.model_coverage, dens_prob)
+    r_global = int(
+        allgather_hosts(np.array([store.num_reads], dtype=np.int64)).sum()
+    )
+    init_arr = host_init(init, T, r_global)
+    mesh = global_data_mesh(device)
+    t0 = time.time()
+    calls0, wait0 = all_reduce_stats["calls"], all_reduce_stats["seconds"]
+    counts, niter = sharded_em_global_local(
+        store.txp_id, w, store.boundaries, T, init_arr,
+        max_iter=args.max_em_iter,
+        convergence_thresh=args.convergence_thresh,
+        dtype=dtype, mesh=mesh, accel=args.em_accel,
+    )
+    log_multiprocess_em(
+        mesh, f", sharded ingest: {store.num_reads}/{r_global} local reads",
+        niter, time.time() - t0, calls0, wait0)
+
+    # reduce the write-side statistics across processes (tiny)
+    unique_l, total_l = get_aux_counts(store, T)
+    unique = allgather_hosts(unique_l).sum(axis=0)
+    total = allgather_hosts(total_l).sum(axis=0)
+    dfields = [f.name for f in dataclasses.fields(DiscardTable)]
+    dvals = allgather_hosts(
+        np.array([getattr(store.discard, f) for f in dfields],
+                 dtype=np.int64)
+    ).sum(axis=0)
+    discard = DiscardTable(**{f: int(v) for f, v in zip(dfields, dvals)})
+
+    breps = None
+    if args.num_bootstraps > 0:
+        t0 = time.time()
+        mult_local = split_bootstrap_multiplicities(
+            args.num_bootstraps, store.num_reads, args.seed
+        )
+        breps, boot_iters = sharded_em_global_local(
+            store.txp_id, w, store.boundaries, T, init_arr,
+            max_iter=args.max_em_iter,
+            convergence_thresh=args.convergence_thresh,
+            dtype=dtype, mesh=mesh, accel=args.em_accel,
+            mult_local=mult_local,
+        )
+        log.info(
+            "%d bootstrap replicates (sharded ingest) in %.3fs, "
+            "iterations %s", args.num_bootstraps, time.time() - t0,
+            boot_iters,
+        )
+
+    if args.write_assignment_probs is not None:
+        # every process owns its reads' names and probabilities
+        part = type(args.output)(f"{args.output}.part{process_index()}")
+        write_probs(args, part, store, counts, txps_name, opts)
+        log.info("assignment probabilities written per process: %s.prob",
+                 part)
+
+    if process_index() != 0:
+        return counts
+    info = get_json_info(args, opts, discard, digest, aln_time_s)
+    write_output(args.output, info, txps_name, txps_len, counts, unique, total)
+    if breps is not None:
+        write_infrep_file(args.output, np.asarray(breps))
     return counts
 
 
@@ -368,7 +632,6 @@ def quantify_bulk_alignments_from_bam(args: Args, opts: FilterOpts) -> np.ndarra
     from ..host.packer import pack_bam_fast
 
     # fail before the pack, not after it
-    check_ported(args)
     resolve_device(args.device)
 
     # Hide the v4 layout's A-sized pre-work behind the streaming pack: a
@@ -382,6 +645,7 @@ def quantify_bulk_alignments_from_bam(args: Args, opts: FilterOpts) -> np.ndarra
     if (
         args.em_impl in ("auto", "v4")
         and args.num_shards <= 1
+        and process_count() == 1
         and os.environ.get("OARFISH_PREBUILD") != "0"
     ):
         fp = filter_fingerprint(opts)

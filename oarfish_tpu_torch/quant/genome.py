@@ -44,7 +44,7 @@ from ..host.store import StoreBuilder, TranscriptCoverage
 from ..io.bam import BamReader, verify_header
 from ..utils.digest import LazyDigest, digest_from_header
 from ..device import resolve_device
-from .bulk import check_ported, perform_inference_and_write_output
+from .bulk import perform_inference_and_write_output
 
 log = logging.getLogger("oarfish_tpu_torch")
 
@@ -74,7 +74,6 @@ def quantify_genome_alignments_from_bam(args: Args, opts: FilterOpts):
     bam_path = args.genome_alignments
     log.info("operating in genome-alignment (projection) mode")
     # fail before the BAM, the annotation and the genome are read
-    check_ported(args)
     resolve_device(args.device)
 
     reader = BamReader(bam_path, threads=max(args.threads - 1, 1))

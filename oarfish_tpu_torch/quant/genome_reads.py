@@ -47,7 +47,7 @@ from ..host.store import StoreBuilder, TranscriptCoverage
 from ..io.fasta import iter_fastx, read_fasta_concat
 from ..utils.digest import LazyDigest, digest_result_json
 from ..device import resolve_device
-from .bulk import check_ported, perform_inference_and_write_output
+from .bulk import perform_inference_and_write_output
 
 log = logging.getLogger("oarfish_tpu_torch")
 
@@ -74,7 +74,6 @@ def quantify_genome_raw_reads(args: Args, opts: FilterOpts):
     annotation = args.annotation
     log.info("operating in genome read-projection mode")
     # fail before the annotation, the index and the mapping
-    check_ported(args)
     resolve_device(args.device)
 
     # The annotation work (GTF load, junction derivation, BED write) is

@@ -34,7 +34,7 @@ from ..utils.digest import (
     resolve_lazy_digests,
 )
 from ..device import resolve_device
-from .bulk import check_ported, perform_inference_and_write_output
+from .bulk import perform_inference_and_write_output
 
 log = logging.getLogger("oarfish_tpu_torch")
 
@@ -152,7 +152,6 @@ def _chunk_columns(hits, read_lens: np.ndarray, discard: DiscardTable):
 
 def quantify_bulk_alignments_raw_reads(args: Args, opts: FilterOpts):
     # fail before the index build and the mapping, not after them
-    check_ported(args)
     resolve_device(args.device)
     t_phase = time.time()
     m, digest = build_or_load_mapper(args)

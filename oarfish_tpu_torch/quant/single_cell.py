@@ -28,9 +28,14 @@ the torch device the caller names (`args.device`, default `cuda`):
 are honoured as in the JAX package. The buckets run one after another in
 sorted-key order, each bucket's counts come back to the host once, when it
 is done, and no more than one bucket's device tensors exist at a time.
-Not ported: the cells mesh of `--num-shards > 1` (`_cell_mesh`), which
-raises with the other multi-device options; the padding of batch sizes to
-a ladder of shapes, which serves XLA's compilation cache only.
+With `--num-shards D > 1` and several cards (`cell_devices`, the
+counterpart of `_cell_mesh`: min(D, cards) devices, one on the CPU) each
+bucket's cells are cut into one contiguous part per device and the parts'
+counts gathered back in cell order; cells are independent, so the output
+is the single-device run's. Under several processes each process runs the
+whole single-cell quantification and writes its own `--output`, as the JAX
+CLI does (the mode takes no collective). Not ported: the padding of batch
+sizes to a ladder of shapes, which serves XLA's compilation cache only.
 """
 
 from __future__ import annotations
@@ -56,7 +61,6 @@ from ..utils.digest import (
     digest_from_header,
     resolve_lazy_digests,
 )
-from .bulk import check_one_device
 from .meta import humantime
 from .writers import write_single_cell_output
 
@@ -212,21 +216,39 @@ class CellBatch:
         self.global_ids.append(global_ids)
         self.cell_index.append(cell_index)
 
-    def run(self, args: Args, dtype: torch.dtype, device: torch.device):
-        """The bucket's batched EM on `device`; returns per cell
-        (cell index, global transcript ids, counts) in bucket order, on
-        the host. The counts cross to the host once, at the end."""
+    def part(self, lo: int, hi: int) -> "CellBatch":
+        """Cells `lo` to `hi - 1` of this bucket, at its padded shapes."""
+        out = CellBatch(self.a_pad, self.r_pad, self.t_pad, self.t_global)
+        for name in ("txp_local", "weights", "read_id", "num_reads",
+                     "global_ids", "cell_index"):
+            setattr(out, name, getattr(self, name)[lo:hi])
+        return out
+
+    def run(self, args: Args, dtype: torch.dtype, devices):
+        """The bucket's batched EM, its cells cut into one contiguous part
+        per device of `devices` (one part: the whole bucket); returns per
+        cell (cell index, global transcript ids, counts) in bucket order,
+        on the host. Each part's counts cross to the host once, at the
+        end."""
         t0 = time.perf_counter()
-        impl = sc_impl(device)
-        if impl == "dense":
-            counts, sub = self._run_dense(args, dtype, device)
-        else:
-            counts, sub = self._run_segsum(args, dtype, device)
-        counts = counts.double().cpu().numpy()
         B = len(self.cell_index)
+        D = min(len(devices), B)
+        cuts = [(B * d) // D for d in range(D + 1)]
+        counts, subs = [], []
+        impl = sc_impl(devices[0])
+        for d in range(D):
+            part = self if D == 1 else self.part(cuts[d], cuts[d + 1])
+            if impl == "dense":
+                c, sub = part._run_dense(args, dtype, devices[d])
+            else:
+                c, sub = part._run_segsum(args, dtype, devices[d])
+            counts.append(c.double().cpu().numpy())
+            subs.append((len(part.cell_index), sub))
+        counts = np.concatenate(counts)
+        n_sub = sum(-(-n // sub) for n, sub in subs)
         log.info("sc bucket %s: %d cells, %s, %d sub-batches of at most "
-                 "%d, %.3fs", self.key, B, impl, -(-B // sub), sub,
-                 time.perf_counter() - t0)
+                 "%d, %.3fs", self.key, B, impl, n_sub,
+                 max(sub for _, sub in subs), time.perf_counter() - t0)
         return [
             (self.cell_index[i], self.global_ids[i],
              counts[i, : len(self.global_ids[i])])
@@ -413,7 +435,6 @@ def quantify_single_cell_from_collated_bam(args: Args, opts: FilterOpts):
     opened."""
     from ..host import native
 
-    check_one_device(args)
     device = resolve_device(args.device)
     dtype = resolve_em_dtype(args.em_dtype, device)
     if native.available():
@@ -529,8 +550,22 @@ def _quantify_single_cell_streaming(args: Args, opts: FilterOpts, device,
     )
 
 
+def cell_devices(args: Args, device: torch.device) -> list:
+    """The devices the cell batches are spread over (the JAX package's
+    `_cell_mesh`): with `--num-shards D > 1` the first min(D, cards)
+    cards, else (and on the CPU) `device` alone."""
+    if args.num_shards <= 1 or device.type == "cpu":
+        return [device]
+    D = min(args.num_shards, torch.cuda.device_count())
+    if D <= 1:
+        return [device]
+    log.info("single-cell EM batches sharded over %d devices", D)
+    return [torch.device("cuda", i) for i in range(D)]
+
+
 def _finish_single_cell(args, buckets, barcodes, num_cells, skipped_empty,
                         reads, t_start, txps_name, digest, dtype, device):
+    devices = cell_devices(args, device)
     n_raw = len(buckets)
     buckets = coarsen_buckets(buckets)
     log.info(
@@ -549,7 +584,7 @@ def _finish_single_cell(args, buckets, barcodes, num_cells, skipped_empty,
     # tensors are freed before the next bucket is built
     for key in sorted(buckets):
         for cell_index, gids, counts in buckets.pop(key).run(
-                args, dtype, device):
+                args, dtype, devices):
             nz = counts > 0.0
             n = int(np.count_nonzero(nz))
             if n == 0:

@@ -4,8 +4,9 @@
   package;
 * importing every module of the port pulls in neither JAX, nor the JAX
   package, nor triton, and compiles nothing;
-* options whose code waits for a later port raise `NotImplementedError`
-  that points at the ROADMAP queue, before any work is done;
+* every option of the JAX CLI runs: the sharded, multi-process and
+  multi-device single-cell options that once raised `NotImplementedError`
+  now run and match the JAX CLI, and no source cites a queue item;
 * the default device is `cuda` and its absence is an error, never a quiet
   move to the CPU.
 """
@@ -18,6 +19,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -78,6 +80,9 @@ def test_sources_exist():
                  "oarfish_tpu_torch/quant/raw_reads.py",
                  "oarfish_tpu_torch/quant/genome.py",
                  "oarfish_tpu_torch/quant/genome_reads.py",
+                 "oarfish_tpu_torch/parallel/sharded_em.py",
+                 "oarfish_tpu_torch/parallel/sharded_v4.py",
+                 "oarfish_tpu_torch/parallel/multihost.py",
                  "oarfish_tpu_torch/device.py", "chip_smoke.py"):
         assert need in names
     from oarfish_tpu_torch.kernels import build
@@ -95,12 +100,11 @@ def test_source_does_not_name_jax(path):
 
 
 def test_no_source_names_a_finished_queue_item():
-    """The batched v4 bootstraps (queue A item 2), the device coverage
-    model (item 3), single-cell (item 4), the raw-read and genome drivers
-    (item 5) and the replicate axis of the route kernels (queue B item 1)
+    """Every item of queue A, the sharded and multi-process EMs (item 6)
+    the last, and the replicate axis of the route kernels (queue B item 1)
     are ported: nothing in the port still points at them as work to do,
     and nothing raises `NotImplementedError` for them."""
-    stale = re.compile(r"queue A item [12345]\b|queue B")
+    stale = re.compile(r"queue A item \d|queue B|NotImplementedError\(")
     for path in port_sources():
         hits = [ln for ln in path.read_text().splitlines()
                 if stale.search(ln)]
@@ -170,19 +174,78 @@ def test_every_ported_module_names_its_counterpart():
 BAM = ["--alignments", "x.bam", "-o", "out", "--device", "cpu"]
 
 
-@pytest.mark.parametrize("argv,queue", [
-    # v3 is ported (queue A item 7): across several devices it still
-    # waits for item 6
-    (BAM + ["--em-impl", "v3", "--num-shards", "2"], "queue A item 6"),
-    (BAM + ["--num-shards", "2"], "queue A item 6"),
-    (BAM + ["--num-processes", "2"], "queue A item 6"),
-    (BAM + ["--single-cell", "--num-shards", "2"], "queue A item 6"),
+def quant_counts(path):
+    rows = [ln.split("\t") for ln in Path(path).read_text().splitlines()[1:]]
+    return np.array([float(r[2]) for r in rows])
+
+
+def run_two_processes(argv, tmp_path):
+    """The port's CLI as processes 0 and 1 of a gloo group on this host;
+    process i writes to `tmp_path / f"p{i}"`."""
+    import os
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "oarfish_tpu_torch", *argv, "-o",
+         str(tmp_path / f"p{i}"), "--coordinator", f"localhost:{port}",
+         "--process-id", str(i)], env=env, cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in range(2)]
+    for p in procs:
+        _, err = p.communicate(timeout=300)
+        assert p.returncode == 0, err[-3000:]
+
+
+@pytest.mark.parametrize("argv,how", [
+    # v3 across shards, without replicates, is the sharded segment-sum EM
+    # in both packages, as is `auto` (segsum on the CPU)
+    (["--em-impl", "v3", "--num-shards", "2"], "jax"),
+    (["--num-shards", "2"], "jax"),
+    (["--num-processes", "2"], "processes"),
+    (["--single-cell", "--num-shards", "2"], "jax"),
 ])
-def test_unported_options_raise(argv, queue):
-    """They raise before the (non-existent) input is even opened."""
-    with pytest.raises(NotImplementedError, match="not ported") as e:
-        torch_main(argv)
-    assert queue in str(e.value) and "ROADMAP.md" in str(e.value)
+def test_unported_options_raise(argv, how, tmp_path, monkeypatch):
+    """The options that raised `NotImplementedError` until the sharded and
+    multi-process EMs were ported now run on the CPU and match the JAX CLI
+    given the same options (f64: rtol 1e-9 for the sharded EM, the
+    single-cell files byte-equal); two processes match the JAX CLI's
+    single-process run at rtol 1e-6, `tests/test_multiprocess.py`'s bar."""
+    from oarfish_tpu.cli import main as jax_main
+    from util_sim import simulate_bam
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("OARFISH_JAX_CACHE", "0")
+    single_cell = "--single-cell" in argv
+    simulate_bam(tmp_path / "x.bam", num_reads=200, seed=8,
+                 names=[f"t{i}" for i in range(6)],
+                 lengths=[1000 + 200 * i for i in range(6)],
+                 barcodes=[f"BC{i}" for i in range(4)] if single_cell
+                 else None)
+    base = ["--alignments", str(tmp_path / "x.bam"), "--em-dtype",
+            "float64", "--quiet"]
+    if how == "processes":
+        run_two_processes(base + ["--device", "cpu", *argv], tmp_path)
+        assert not list(tmp_path.glob("p1.*"))
+        assert jax_main(base + ["-o", "j", "--em-impl", "segsum"]) == 0
+        np.testing.assert_allclose(quant_counts("p0.quant"),
+                                   quant_counts("j.quant"),
+                                   rtol=1e-6, atol=1e-6)
+        return
+    assert torch_main(base + ["-o", "t", "--device", "cpu", *argv]) == 0
+    assert jax_main(base + ["-o", "j", *argv]) == 0
+    if single_cell:
+        for ext in (".count.mtx", ".features.txt", ".barcodes.txt"):
+            assert (Path(f"t{ext}").read_bytes()
+                    == Path(f"j{ext}").read_bytes()), ext
+        return
+    np.testing.assert_allclose(quant_counts("t.quant"),
+                               quant_counts("j.quant"), rtol=1e-9, atol=1e-9)
+    assert (Path("t.ambig_info.tsv").read_bytes()
+            == Path("j.ambig_info.tsv").read_bytes())
 
 
 @pytest.mark.parametrize("argv", [
@@ -204,46 +267,48 @@ def test_raw_read_and_genome_modes_get_past_the_option_check(argv, tmp_path,
 
 
 def test_v4_is_ported_and_v3_is_not():
-    """Since queue A item 7 both routed formulations are ported: each gets
-    past the option check, and the run fails on the missing input."""
-    from oarfish_tpu_torch.config import Args
-
+    """Since queue A item 7 both routed formulations are ported (and since
+    item 6 no option check is left): each run fails on the missing
+    input."""
     assert "v4" in tbulk.PORTED_IMPLS and "v3" in tbulk.PORTED_IMPLS
     for impl in ("v4", "v3"):
-        tbulk.check_ported(Args(em_impl=impl))
         with pytest.raises((OSError, ValueError)):
             torch_main(BAM + ["--em-impl", impl])
 
 
 @pytest.mark.parametrize("item", [5, 6, 7])
 def test_roadmap_has_the_queue_items_named_in_errors(item):
-    """Queue A keys its items by stable labels (`**A5:` ...); the list
-    numbers give the order of work and change."""
+    """Queue A keys its items by stable labels (`**A5:` ...), which errors
+    once cited; each of these is recorded there as done, with its PR."""
     roadmap = (REPO / "ROADMAP.md").read_text()
     section = roadmap[roadmap.index("### A. Modules to port"):]
     section = section[:section.index("### B.")]
-    assert re.search(rf"\*\*A{item}:", section), item
+    entry = re.search(rf"\*\*A{item}:[^\n]*\n(?:   [^\n]*\n)*", section)
+    assert entry, item
+    assert re.search(r"Done in PR \d+", entry.group(0)), entry.group(0)
 
 
 def test_errors_cite_exactly_the_open_queue_items():
-    """Every queue item an error cites is one the test above checks, and
-    single-cell (item 4), the raw-read and genome modes (item 5) and the
-    v3 EM (item 7), all ported, are cited no more."""
+    """No queue item is open, and no error or source cites one: the last,
+    the sharded and multi-process EMs (item 6), is ported."""
     cited = {int(m) for p in port_sources()
              for m in re.findall(r"queue A item (\d+)", p.read_text())}
-    assert sorted(cited) == [6]
+    assert sorted(cited) == []
 
 
 def test_process_count_from_the_environment_raises(monkeypatch):
     """The JAX package's launcher variables are read where the flags are
-    absent: a count above one raises before the input is opened."""
+    absent: a count above one without a process id raises `ValueError`
+    before any input is opened or any group is joined (nothing detects a
+    cluster). With all three variables the processes form a group
+    (`tests/test_torch_multiprocess.py`)."""
     monkeypatch.setenv("OARFISH_NUM_PROCESSES", "2")
-    monkeypatch.setenv("OARFISH_PROCESS_ID", "1")
     monkeypatch.setenv("OARFISH_COORDINATOR", "localhost:1234")
+    monkeypatch.delenv("OARFISH_PROCESS_ID", raising=False)
     for argv in (BAM, BAM + ["--single-cell"]):
-        with pytest.raises(NotImplementedError, match="queue A item 6") as e:
+        with pytest.raises(ValueError, match="OARFISH_PROCESS_ID") as e:
             torch_main(argv)
-        assert "OARFISH_NUM_PROCESSES" in str(e.value)
+        assert "2 processes" in str(e.value)
     monkeypatch.setenv("OARFISH_NUM_PROCESSES", "1")
     with pytest.raises((OSError, ValueError)):  # past the check: no input
         torch_main(BAM)

@@ -138,11 +138,26 @@ def test_auto_impl_follows_the_device(monkeypatch):
         tsc.sc_impl(torch.device("cpu"))
 
 
-def test_num_shards_raises_naming_the_queue_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        torch_main(["--alignments", str(tmp_path / "missing.bam"),
-                    "-o", str(tmp_path / "sc"), "--single-cell",
-                    "--num-shards", "2", "--device", "cpu"])
+def test_num_shards_raises_naming_the_queue_item(runs, monkeypatch):
+    """`--num-shards 2`, which raised until the sharded EMs were ported,
+    runs: on the CPU (one device) and with the cells of each bucket spread
+    over two devices (`[cpu, cpu]`), both byte-equal to the single-device
+    run, dense and segment sums alike."""
+    root = runs["segsum"][0].parent.parent
+    one = tsc.cell_devices
+    for impl in ("segsum", "dense"):
+        monkeypatch.setenv("OARFISH_SC_IMPL", impl)
+        for tag, devices in (("one", one),
+                             ("two", lambda args, device: [device] * 2)):
+            monkeypatch.setattr(tsc, "cell_devices", devices)
+            d = root / f"shards_{impl}_{tag}"
+            d.mkdir()
+            monkeypatch.chdir(d)
+            assert torch_main(ARGV + ["--num-shards", "2", "--device",
+                                      "cpu"]) == 0
+            for ext in (".count.mtx", ".barcodes.txt", ".features.txt"):
+                assert (Path("sc" + ext).read_bytes() == Path(
+                    str(runs[impl][0]) + ext).read_bytes()), (impl, tag, ext)
 
 
 def test_single_cell_without_a_card_raises(tmp_path):
