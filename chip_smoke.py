@@ -8,8 +8,9 @@ kernel from the sources in this checkout, holds each against its plain
 PyTorch version on the card, and drives the port's main paths (bulk
 quantification of a transcriptome BAM, on one device, over read shards
 and over two processes; single-cell quantification of a CB-collated BAM;
-raw reads against a transcriptome and against a genome; a genome BAM) at
-full width through the entry points a user calls. One
+raw reads against a transcriptome and against a genome; a genome BAM;
+the port's benchmark) at full width through the entry points a user
+calls. One
 JSON object per phase goes to standard output:
 
   env            card name and power limit, torch/CUDA versions, which
@@ -57,6 +58,12 @@ JSON object per phase goes to standard output:
                  run with the same multiplicities), a second v4 run
                  (bit-identical, its plan out of the plan cache),
                  `--em-impl pallas` with 8 replicates, `--em-impl segsum`
+  segsum_replicates  8 multinomial replicates of the segment-sum EM on
+                 the bench CSR as one batch (`run_replicates`, the path of
+                 `--em-impl segsum --num-bootstraps 8` and of process 0 of a
+                 multi-process run) and as 8 single runs: seconds and
+                 m-steps of each, every replicate of the batch with the
+                 iterations and bits of its single run, the mass
   em_v3          the same store with `--em-impl v3`, f32, 8 bootstrap
                  replicates (one after another), then the SQUAREM runner
                  on the same device state: the host build's seconds, its geometry (NPAD,
@@ -97,16 +104,22 @@ JSON object per phase goes to standard output:
                  replicates, bit-equal through the kernels and through
                  their plain versions; (b) two processes of the CLI (gloo,
                  one card) on the cli_e2e BAM and (c) on its two halves
-                 split on read boundaries (`{proc}`, with
-                 `--num-bootstraps 2`), `--em-impl segsum` with the coverage
-                 model and
+                 split on read boundaries (`{proc}`), `--em-impl segsum
+                 --num-bootstraps 2` with the coverage model and
                  assignment probabilities, each against one in-process
                  run of the whole: L1/R < 2e-3, mass, `.ambig_info.tsv`
                  and `meta_info.json` equal, process 1 writes nothing
                  (or, in (c), only its `part1.prob`), the parts' reads
-                 are the whole's, (c)'s 2 replicates carry the reads'
-                 mass; each process's wall, the all-reduces and their
-                 share of the EM seconds
+                 are the whole's, the 2 replicates carry the reads' mass
+                 and in (b), where process 0 runs them alone, equal the
+                 one-process run's; each process's wall, the all-reduces
+                 and their share of the EM seconds
+  bench          the port's benchmark in this process, `python -m
+                 oarfish_tpu_torch.bench` with `v4` and with
+                 OARFISH_BENCH_IMPL=pallas at the bench shape, then its
+                 `--e2e --quick --reps 1`: the three JSON lines, exact
+                 launches, the mass, each `ms_per_iter` between its
+                 m-step alone and 5 times em_full_width's ms an iteration
   single_cell    a CB-collated BAM at `scripts/sc_e2e_bench.py`'s scale
                  (100,000 cells x 50 reads, T=30,000, ~2 alignments a
                  read) through the CLI with `--single-cell` on the card
@@ -149,7 +162,9 @@ JSON object per phase goes to standard output:
   em_breakdown   only with --breakdown: the `pallas` and the `v4` m-step
                  alone and the batched v4 m-step of 8 replicates, and the
                  loop with and without the host's per-iteration read of the
-                 stop flag
+                 stop flag; the profile's launches and device time an
+                 m-step, the m-steps of its window counted by a kernel
+                 launched once each (K1 for `pallas`, K4 for `v4`)
   {"kernels": [...]}   per kernel: launches on the main path (in all and
                  per phase), error, times and bound
   <card name>, <power limit>
@@ -176,6 +191,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import hashlib
 import json
 import logging
@@ -187,7 +203,6 @@ import subprocess
 import sys
 import tempfile
 import time
-import zlib
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
@@ -195,6 +210,15 @@ from typing import Optional
 import numpy as np
 import torch
 
+from oarfish_tpu_torch import bench as bench_mod
+from oarfish_tpu_torch.bench import (
+    BGZF_EOF,
+    build_e2e_bam,
+    compress_payload,
+    make_csr,
+    put_i32,
+    put_u16,
+)
 from oarfish_tpu_torch.cli import build_parser, main as cli_main, to_args
 from oarfish_tpu_torch.config import Args, resolve_filters
 from oarfish_tpu_torch.genome import project_native
@@ -216,8 +240,17 @@ from oarfish_tpu_torch.ops import route_stage as rs
 from oarfish_tpu_torch.ops import row_sums as rsm
 from oarfish_tpu_torch.ops import sorted_gather as sg
 from oarfish_tpu_torch.ops import tile_permute as tp
-from oarfish_tpu_torch.ops.bootstrap import BOOT_BATCH, sample_multiplicities
-from oarfish_tpu_torch.ops.em import EmData, run_em_squarem, uniform_init
+from oarfish_tpu_torch.ops.bootstrap import (
+    BOOT_BATCH,
+    run_replicates,
+    sample_multiplicities,
+)
+from oarfish_tpu_torch.ops.em import (
+    EmData,
+    run_em,
+    run_em_squarem,
+    uniform_init,
+)
 from oarfish_tpu_torch.ops.em_dense import DenseCellEm, _m_step_dense
 from oarfish_tpu_torch.ops.em_fast import FastEmData
 from oarfish_tpu_torch.ops.static_permute import GlobalRoute
@@ -228,7 +261,6 @@ from oarfish_tpu_torch.quant.bulk import perform_inference_and_write_output
 JAX_PACKAGE = "oarfish_" + "tpu"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
-MEAN_K = 3
 FULL_READS, FULL_TXPS = 2_000_000, 200_000  # the bench shape
 SMALL_READS = 500_000  # the second CLI run (`--em-impl pallas`)
 # the single-cell phase: `scripts/sc_e2e_bench.py`'s defaults
@@ -304,168 +336,18 @@ def v4_launches(m_steps: int, fused: bool, batched_steps: int = 0) -> dict:
             "row_sums": (1 + int(not fused)) * m_steps}
 
 
+T_START = time.time()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's line; `at_s` is the script's seconds when it ends."""
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": round(time.time() - T_START, 1)}), flush=True)
 
 
 # ---------------------------------------------------------------------------
 # workloads
 # ---------------------------------------------------------------------------
-
-def make_csr(R: int, T: int, seed: int = 0):
-    """The bench CSR: geometric alignments per read (mean 3, at most 100),
-    zipf-popular transcripts, log-normal weights."""
-    rng = np.random.default_rng(seed)
-    sizes = rng.geometric(1.0 / MEAN_K, size=R).clip(1, 100)
-    A = int(sizes.sum())
-    boundaries = np.zeros(R + 1, dtype=np.int64)
-    np.cumsum(sizes, out=boundaries[1:])
-    txp_id = (rng.zipf(1.3, size=A) % T).astype(np.int32)
-    w = np.exp(rng.normal(0, 0.5, size=A)).astype(np.float32)
-    return txp_id, w, boundaries, A
-
-
-BGZF_EOF = bytes.fromhex(
-    "1f8b08040000000000ff0600424302001b0003000000000000000000"
-)
-
-
-def _compress_payload(fhs, payload: np.ndarray, pool, level=1):
-    """BGZF-compress a uint8 payload array in 64KB blocks on `pool`, into
-    the file `fhs` or each of the files `fhs`."""
-    mv = memoryview(payload.tobytes())
-    blocks = [mv[i: i + 0xFF00] for i in range(0, len(mv), 0xFF00)]
-
-    def one(b):
-        co = zlib.compressobj(level, zlib.DEFLATED, -15)
-        comp = co.compress(b) + co.flush()
-        bsize = len(comp) + 12 + 6 + 8
-        header = (
-            b"\x1f\x8b\x08\x04" + b"\x00\x00\x00\x00" + b"\x00\xff"
-            + struct.pack("<H", 6) + b"BC" + struct.pack("<H", 2)
-            + struct.pack("<H", bsize - 1)
-        )
-        trailer = struct.pack("<II", zlib.crc32(b), len(b) & 0xFFFFFFFF)
-        return header + comp + trailer
-
-    fhs = fhs if isinstance(fhs, (list, tuple)) else [fhs]
-    for out in pool.map(one, blocks):
-        for fh in fhs:
-            fh.write(out)
-
-
-def _put_i32(buf, offs, vals):
-    v = np.asarray(vals, dtype=np.int64)
-    for k in range(4):
-        buf[offs + k] = (v >> (8 * k)) & 0xFF
-
-
-def _put_u16(buf, offs, vals):
-    v = np.asarray(vals, dtype=np.int64)
-    buf[offs] = v & 0xFF
-    buf[offs + 1] = (v >> 8) & 0xFF
-
-
-def build_e2e_bam(path, R, T, seed=0, mean_k=MEAN_K, chunk_reads=100_000,
-                  threads=8, parts=()):
-    """Vectorized synthetic collated BAM: R reads, ~mean_k alignments
-    each (all alignments of a read share its span, so the 0.95 score
-    threshold retains nearly all), zipf-popular transcripts, primaries
-    carry SEQ. Returns the number of alignment records. With n paths in
-    `parts` the k-th chunk of reads also goes to the (k % n)-th of them
-    (the same compressed blocks), so they split the BAM's reads on read
-    boundaries, each with the whole header."""
-    rng = np.random.default_rng(seed)
-    t_len = rng.integers(2200, 12_000, size=T).astype(np.int64)
-    text = "@HD\tVN:1.6\tSO:unsorted\n@PG\tID:minimap2\tPN:minimap2\n"
-    hdr = bytearray()
-    hdr += b"BAM\x01"
-    tb = text.encode()
-    hdr += struct.pack("<i", len(tb)) + tb
-    hdr += struct.pack("<i", T)
-    for i in range(T):
-        nb = (b"t%06d" % i) + b"\x00"
-        hdr += struct.pack("<i", len(nb)) + nb + struct.pack("<i", int(t_len[i]))
-
-    # seq/qual filler with realistic entropy (16-symbol bytes deflate
-    # about 1.8x, like packed bases)
-    n_pool = 8 << 20
-    pool_bytes = (
-        rng.integers(0, 4, size=n_pool) * 16 + rng.integers(0, 4, size=n_pool)
-    ).astype(np.uint8)
-    filler = None  # lazily tiled to the largest chunk payload
-
-    NAME_LEN = 11  # 'r' + 9 digits + NUL
-    CIG = 12  # 3 ops
-    FIXED = 4 + 32 + NAME_LEN + CIG  # through end of cigar
-    TAGS = 7  # AS:i:<i32>
-
-    total_alns = 0
-    with contextlib.ExitStack() as stack, ThreadPoolExecutor(threads) as tpool:
-        fh, *part_fhs = [stack.enter_context(open(p, "wb"))
-                         for p in (path, *parts)]
-        _compress_payload([fh, *part_fhs],
-                          np.frombuffer(bytes(hdr), dtype=np.uint8), tpool)
-        for lo in range(0, R, chunk_reads):
-            dest = [fh]
-            if part_fhs:
-                dest.append(part_fhs[(lo // chunk_reads) % len(part_fhs)])
-            hi = min(lo + chunk_reads, R)
-            n_r = hi - lo
-            sizes = rng.geometric(1.0 / mean_k, size=n_r).clip(1, 50)
-            A = int(sizes.sum())
-            total_alns += A
-            read_idx = np.repeat(np.arange(lo, hi, dtype=np.int64), sizes)
-            first = np.ones(A, dtype=bool)
-            first[1:] = read_idx[1:] != read_idx[:-1]
-            tid = (rng.zipf(1.3, size=A) % T).astype(np.int64)
-            span_r = rng.integers(400, 2000, size=n_r)
-            span = np.repeat(span_r, sizes)
-            tl = t_len[tid]
-            pos = (rng.random(A) * (tl - span)).astype(np.int64)
-            score = span - rng.integers(0, 20, size=A)
-            l_seq = np.where(first, span + 21, 0).astype(np.int64)
-            seq_bytes = (l_seq + 1) // 2 + l_seq
-            rec_len = FIXED + seq_bytes + TAGS
-            offs = np.zeros(A + 1, dtype=np.int64)
-            np.cumsum(rec_len, out=offs[1:])
-            # the buffer starts as pool-tiled filler: the seq+qual
-            # regions (skipped by length arithmetic, never parsed) keep
-            # it; every structured field is overwritten below
-            need = int(offs[-1])
-            if filler is None or len(filler) < need:
-                filler = np.tile(pool_bytes, need // n_pool + 1)
-            buf = filler[:need]
-            o = offs[:-1]
-            _put_i32(buf, o, rec_len - 4)  # block_size
-            _put_i32(buf, o + 4, tid)
-            _put_i32(buf, o + 8, pos)
-            buf[o + 12] = NAME_LEN
-            buf[o + 13] = 60  # mapq
-            _put_u16(buf, o + 14, np.zeros(A, np.int64))  # bin
-            _put_u16(buf, o + 16, np.full(A, 3, np.int64))  # n_cigar
-            _put_u16(buf, o + 18, np.where(first, 0, 256))  # flag
-            _put_i32(buf, o + 20, l_seq)
-            _put_i32(buf, o + 24, np.full(A, -1, np.int64))
-            _put_i32(buf, o + 28, np.full(A, -1, np.int64))
-            _put_i32(buf, o + 32, np.zeros(A, np.int64))
-            buf[o + 36] = ord("r")
-            for k in range(9):
-                buf[o + 37 + k] = (read_idx // 10 ** (8 - k)) % 10 + ord("0")
-            # cigar: 12S spanM 9S
-            _put_i32(buf, o + 47, np.full(A, (12 << 4) | 4, np.int64))
-            _put_i32(buf, o + 51, (span.astype(np.int64) << 4) | 0)
-            _put_i32(buf, o + 55, np.full(A, (9 << 4) | 4, np.int64))
-            to = offs[1:] - TAGS
-            buf[to] = ord("A")
-            buf[to + 1] = ord("S")
-            buf[to + 2] = ord("i")
-            _put_i32(buf, to + 3, score)
-            _compress_payload(dest, buf, tpool)
-        for f in (fh, *part_fhs):
-            f.write(BGZF_EOF)
-    return total_alns
-
 
 def build_sc_bam(path, C, reads_per_cell, T, seed=0, mean_k=2,
                  chunk_reads=100_000, threads=8):
@@ -507,7 +389,7 @@ def build_sc_bam(path, C, reads_per_cell, T, seed=0, mean_k=2,
     total_alns = 0
     with open(path, "wb") as fh, ThreadPoolExecutor(threads) as tpool:
         harr = np.frombuffer(bytes(hdr), dtype=np.uint8)
-        _compress_payload(fh, harr, tpool)
+        compress_payload(fh, harr, tpool)
         for lo in range(0, R, chunk_reads):
             hi = min(lo + chunk_reads, R)
             n_r = hi - lo
@@ -536,31 +418,31 @@ def build_sc_bam(path, C, reads_per_cell, T, seed=0, mean_k=2,
                 filler = np.tile(pool_bytes, need // n_pool + 1)
             buf = filler[:need]
             o = offs[:-1]
-            _put_i32(buf, o, rec_len - 4)
-            _put_i32(buf, o + 4, tid)
-            _put_i32(buf, o + 8, pos)
+            put_i32(buf, o, rec_len - 4)
+            put_i32(buf, o + 4, tid)
+            put_i32(buf, o + 8, pos)
             buf[o + 12] = NAME_LEN
             buf[o + 13] = 60
-            _put_u16(buf, o + 14, np.zeros(A, np.int64))
-            _put_u16(buf, o + 16, np.full(A, 3, np.int64))
-            _put_u16(buf, o + 18, np.where(first, 0, 256))
-            _put_i32(buf, o + 20, l_seq)
-            _put_i32(buf, o + 24, np.full(A, -1, np.int64))
-            _put_i32(buf, o + 28, np.full(A, -1, np.int64))
-            _put_i32(buf, o + 32, np.zeros(A, np.int64))
+            put_u16(buf, o + 14, np.zeros(A, np.int64))
+            put_u16(buf, o + 16, np.full(A, 3, np.int64))
+            put_u16(buf, o + 18, np.where(first, 0, 256))
+            put_i32(buf, o + 20, l_seq)
+            put_i32(buf, o + 24, np.full(A, -1, np.int64))
+            put_i32(buf, o + 28, np.full(A, -1, np.int64))
+            put_i32(buf, o + 32, np.zeros(A, np.int64))
             buf[o + 36] = ord("r")
             for k in range(9):
                 buf[o + 37 + k] = (
                     (read_idx // 10 ** (8 - k)) % 10 + ord("0")
                 )
-            _put_i32(buf, o + 47, np.full(A, (12 << 4) | 4, np.int64))
-            _put_i32(buf, o + 51, (span.astype(np.int64) << 4) | 0)
-            _put_i32(buf, o + 55, np.full(A, (9 << 4) | 4, np.int64))
+            put_i32(buf, o + 47, np.full(A, (12 << 4) | 4, np.int64))
+            put_i32(buf, o + 51, (span.astype(np.int64) << 4) | 0)
+            put_i32(buf, o + 55, np.full(A, (9 << 4) | 4, np.int64))
             to = offs[1:] - TAGS
             buf[to] = ord("A")
             buf[to + 1] = ord("S")
             buf[to + 2] = ord("i")
-            _put_i32(buf, to + 3, score)
+            put_i32(buf, to + 3, score)
             cb = to + CB_OFF
             buf[cb] = ord("C")
             buf[cb + 1] = ord("B")
@@ -570,7 +452,7 @@ def build_sc_bam(path, C, reads_per_cell, T, seed=0, mean_k=2,
                 dig = (cell_idx >> (2 * (BCLEN - 1 - k))) & 3
                 buf[cb + 3 + k] = base_lut[dig]
             buf[cb + 3 + BCLEN] = 0
-            _compress_payload(fh, buf, tpool)
+            compress_payload(fh, buf, tpool)
         fh.write(BGZF_EOF)
     return total_alns
 
@@ -790,9 +672,9 @@ def simulate_genome_reads(d: Path, rng, isoforms, chroms, n_reads: int,
         nb = name.encode() + b"\x00"
         hdr += struct.pack("<i", len(nb)) + nb + struct.pack("<i", length)
     with open(d / "g.bam", "wb") as fh, ThreadPoolExecutor(threads) as pool:
-        _compress_payload(fh, np.frombuffer(bytes(hdr), np.uint8), pool)
+        compress_payload(fh, np.frombuffer(bytes(hdr), np.uint8), pool)
         for lo in range(0, len(records), 20_000):
-            _compress_payload(fh, np.frombuffer(
+            compress_payload(fh, np.frombuffer(
                 b"".join(records[lo:lo + 20_000]), np.uint8), pool)
         fh.write(BGZF_EOF)
     return (d / "g.bam").stat().st_size
@@ -815,6 +697,24 @@ def time_ms(fn, device, repeats: int = 10, batch: int = 10) -> float:
         torch.cuda.synchronize(device)
         times.append(a.elapsed_time(b) / batch)
     return float(np.median(times))
+
+
+def queued_ms(fn, device, calls: int = 10) -> float:
+    """Device time of one `fn()` in ms between CUDA events, the calls
+    queued behind a kernel that keeps the card busy for about 0.1 s, so
+    that it runs them back to back with no host time between them: a lower
+    bound on any loop that calls `fn` once an iteration."""
+    fn()
+    torch.cuda.synchronize(device)
+    torch.cuda._sleep(200_000_000)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    torch.cuda.synchronize(device)
+    return a.elapsed_time(b) / calls
 
 
 def kernel_equals_plain(tab, base, lane, use_hi) -> float:
@@ -1099,38 +999,91 @@ def bound(n_bytes: int, n_ops: int, moved: Optional[int] = None) -> dict:
     return out
 
 
-def device_ms(fn, device, calls: int = 20, attempts: int = 4,
+def per_step(rows, once: Optional[str] = None,
+             calls: Optional[int] = None) -> Optional[dict]:
+    """A profiler window's kernel rows `(name, count, device_us)` per step.
+    The window holds `calls` steps, or, with `once`, as many as the kernels
+    whose name holds `once` (launched once a step) were counted: the
+    profiler now and then drops a step's records, and the count of a
+    once-a-step kernel says how many it kept. Every kernel's count must be a
+    whole multiple of that number, or the window lost some of a step's
+    records and the caller profiles again: None. Returns the steps, the
+    launches and device ms a step, and by kernel the launches and device
+    µs a step."""
+    steps = calls
+    if once is not None:
+        steps = sum(count for name, count, _ in rows if once in name)
+        if calls is not None and steps > calls:
+            return None
+    if not rows or not steps or any(count % steps for _, count, _ in rows):
+        return None
+    return dict(
+        steps=steps,
+        launches=sum(count for _, count, _ in rows) // steps,
+        device_ms=sum(us for _, _, us in rows) / steps / 1e3,
+        calls_per_step={name: count // steps for name, count, _ in rows},
+        device_us_per_step={name: us / steps for name, _, us in rows})
+
+
+def profile_rows(fn, device, calls: int) -> list:
+    """`fn()` `calls` times under `torch.profiler`: the kernel rows
+    `(name, count, device_us)` of the window (operator rows repeat their
+    kernels' time and are left out, as is the step's own range). The
+    window follows a warm-up window of as many calls, traced and dropped:
+    windows that began with the tracer came back without their first
+    launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize(device)
+            prof.step()
+    return [(e.key, e.count, e.device_time_total) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.device_time_total > 0
+            and not e.key.startswith("ProfilerStep")]
+
+
+def profile_steps(fn, device, calls: int = 20, once: Optional[str] = None,
+                  only: Optional[str] = None,
+                  attempts: int = 8) -> Optional[dict]:
+    """`per_step` of a window of `calls` calls of `fn` (the kernels whose
+    name holds `only`, where given), profiled again until every kernel's
+    count is a whole multiple of the steps, at most `attempts` times; None
+    (not measured) where no window was whole."""
+    fn()
+    torch.cuda.synchronize(device)
+    for _ in range(attempts):
+        rows = [r for r in profile_rows(fn, device, calls)
+                if only is None or only in r[0]]
+        got = per_step(rows, once=once, calls=calls)
+        if got is not None:
+            return got
+        logging.getLogger(__name__).warning(
+            "the profiler's window is not whole (%d calls: %s); profiling "
+            "again", calls, [(name[:40], count) for name, count, _ in rows])
+    logging.getLogger(__name__).warning(
+        "no whole profiler window in %d attempts: not measured", attempts)
+    return None
+
+
+def device_ms(fn, device, calls: int = 20, attempts: int = 8,
               only: Optional[str] = None):
     """Device time of one `fn()` in ms by `torch.profiler`: the kernels'
     own time on the card, without the host's time to launch them; with
     `only`, of the kernels whose name holds it.
 
-    Now and then a profiling session hands back no kernel records at all
-    (CUPTI drops the window); it is then profiled anew. Where every attempt
-    comes back empty the time is not measured (None): the event times and
+    Now and then a profiling session drops records (CUPTI loses some or all
+    of a window); a window whose kernel counts are not whole multiples of
+    `calls` is profiled anew (`profile_steps`). Where no attempt gives a
+    whole window the time is not measured (None): the event times and
     every check of the run stand without it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize(device)
-    for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize(device)
-        total = sum(e.device_time_total for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA
-                    and (only is None or only in e.key))
-        if total > 0:
-            return total / calls / 1e3
-        logging.getLogger(__name__).warning(
-            "the profiler saw no device time; profiling again")
-    logging.getLogger(__name__).warning(
-        "the profiler saw no device time in %d attempts: not measured",
-        attempts)
-    return None
+    got = profile_steps(fn, device, calls, only=only, attempts=attempts)
+    return None if got is None else got["device_ms"]
 
 
 def stage_variants_cr128(device) -> dict:
@@ -1761,6 +1714,70 @@ def phase_em_full_width(csr, R, T, device, tmp: Path, capture, fused: bool):
     return out, total, counts
 
 
+def phase_segsum_replicates(csr, R, T, device,
+                            max_iter: Optional[int] = None) -> dict:
+    """8 multinomial replicates of the segment-sum EM on the bench CSR (f32,
+    the CLI's defaults, seed 0) as one batch through `run_replicates`, as a
+    user's `--em-impl segsum --num-bootstraps 8` and process 0 of a
+    multi-process run take them, and as 8 single `run_em` calls: seconds and
+    m-steps of each. Every replicate of the batch must stop where its single
+    run stops, with the same bits, and carry the reads' mass. `max_iter`
+    caps every run (a bounded measurement of an earlier `ops/em.py`). The
+    line is printed before the checks, so that a run that fails them still
+    shows its times."""
+    txp_id, w, boundaries, A = csr
+    read_id = np.repeat(np.arange(R, dtype=np.int32), np.diff(boundaries))
+    defaults = Args()
+    max_iter = defaults.max_em_iter if max_iter is None else max_iter
+    data = EmData.build(txp_id, w, read_id, R, T, dtype=torch.float32,
+                        device=device)
+    init = uniform_init(data, torch.float32)
+    mult = sample_multiplicities(np.random.default_rng(0), REPLICATES, R)
+
+    def run(i, m):
+        return run_em(data, i, max_iter, defaults.convergence_thresh,
+                      multiplicity=m)
+
+    torch.cuda.synchronize(device)
+    t0 = time.time()
+    batch, batch_iters = run_replicates(run, mult, init)
+    batch_s = time.time() - t0
+    singles, single_iters, single_s = [], [], []
+    for b in range(REPLICATES):
+        t0 = time.time()
+        counts, niter = run(init, torch.as_tensor(mult[b], device=device)
+                            .float())
+        singles.append(counts.double().cpu().numpy())
+        single_iters.append(int(niter))
+        single_s.append(round(time.time() - t0, 3))
+    del data
+    singles = np.stack(singles)
+    batch_m_steps = int(batch_iters.max()) + 1
+    single_m_steps = sum(n + 1 for n in single_iters)
+    equal = [bool(np.array_equal(batch[b], singles[b]))
+             for b in range(REPLICATES)]
+    mass = float(np.abs(batch.sum(axis=1) - R).max() / R)
+    out = dict(
+        R=R, T=T, A=A, dtype="float32", replicates=REPLICATES,
+        max_iter=max_iter, batch_s=round(batch_s, 3),
+        batch_m_steps=batch_m_steps,
+        batch_ms_per_m_step=batch_s / batch_m_steps * 1e3,
+        batch_iterations=batch_iters.tolist(),
+        singles_s=round(sum(single_s), 3), single_s=single_s,
+        single_m_steps=single_m_steps,
+        single_ms_per_m_step=sum(single_s) / single_m_steps * 1e3,
+        single_iterations=single_iters,
+        batch_over_singles=batch_s / sum(single_s),
+        bit_equal=equal,
+        max_abs_diff=float(np.abs(batch - singles).max()),
+        replicate_mass_rel_err=mass)
+    emit("segsum_replicates", **out)
+    assert batch_iters.tolist() == single_iters, (batch_iters, single_iters)
+    assert all(equal), f"batched replicates differ from single runs: {equal}"
+    assert mass < 1e-5, f"replicate mass off by {mass}"
+    return out
+
+
 @contextlib.contextmanager
 def recording_v3_builds():
     """Keep the device state of every `EmV3Data.build` made while the block
@@ -2273,14 +2290,18 @@ def sharded_launches(D: int, m_steps: int, fused: bool, batched: int,
     return {k: D * n for k, n in one.items()}
 
 
-# the CLI runs of several processes and their flags beside
-# PROCESS_FLAGS: (b) every process packs the whole BAM, (c) process i
-# packs `e2e_half.{i}.bam` and draws its part of 2 replicates (under
-# segment sums the one-process run would take ~54 s for 2 replicates as a
-# batch, so it draws none)
-PROCESS_RUNS = {"whole": [], "halves": ["--num-bootstraps", "2"]}
+# the CLI runs of several processes: (b) every process packs the whole BAM
+# and process 0 runs the 2 replicates alone, as one batch of segment sums,
+# (c) process i packs `e2e_half.{i}.bam` and takes its part of every
+# replicate's m-steps; the one-process run of the whole draws the same 2
+PROCESS_RUNS = ("whole", "halves")
 PROCESS_FLAGS = ["--model-coverage", "--write-assignment-probs",
-                 "--em-impl", "segsum"]
+                 "--em-impl", "segsum", "--num-bootstraps", "2"]
+# process 0's replicates: (b) alone after the EM, with the inputs' build;
+# (c) shared by both processes
+MULTI_BOOT = re.compile(r"(\d+) bootstrap replicates (?:on process 0 |"
+                        r"\(sharded ingest\) )in ([0-9.]+)s"
+                        r"(?: \(inputs ([0-9.]+)s\))?")
 MULTI_EM = re.compile(r"multi-process EM \((\d+) processes, (\d+) shards"
                       r"[^)]*\) converged after (\d+) iterations in "
                       r"([0-9.]+)s; (\d+) all-reduces, ([0-9.]+)s in them")
@@ -2435,15 +2456,24 @@ def phase_sharded(csr, R, T, device, tmp: Path, capture, counts_v4,
     # (b) and (c): two processes of the CLI against one, on the card
     t0 = time.time()
     single = tmp / "mp_single"
+    n_boot = len(capture.boot)
     argv, counts1, kept, meta1, _, _, wall1 = run_cli(
         bam, single, PROCESS_FLAGS[2:], device, capture)
     single_s = time.time() - t0
+    _, single_boot_s, _ = capture.boot[n_boot]
+    import pyarrow.parquet as pq
+
+    def replicates(prefix):
+        reps = pq.read_table(str(prefix) + ".infreps.pq")
+        return np.stack([np.asarray(reps[c]) for c in reps.column_names])
+
+    reps1 = replicates(single)
     halves = e2e_halves(tmp)
     procs = {}
-    for tag, extra in PROCESS_RUNS.items():
+    for tag in PROCESS_RUNS:
         src = str(bam) if tag == "whole" else str(tmp / "e2e_half.{proc}.bam")
         out = run_processes(src, lambda i, tag=tag: tmp / f"mp_{tag}{i}", 2,
-                            tmp, extra)
+                            tmp)
         m = MULTI_EM.search(out[0][1])
         assert m, out[0][1][-2000:]
         n_proc, n_shards, iters, em_s, n_ar, ar_s = m.groups()
@@ -2457,8 +2487,7 @@ def phase_sharded(csr, R, T, device, tmp: Path, capture, counts_v4,
             assert (Path(str(tmp / f"mp_{tag}0") + ext).read_bytes()
                     == Path(str(single) + ext).read_bytes()), (tag, ext)
         assert same_meta(tmp / f"mp_{tag}0.meta_info.json",
-                         str(single) + ".meta_info.json",
-                         but=("num_bootstraps",) if extra else ()), tag
+                         str(single) + ".meta_info.json"), tag
         # process 1 writes nothing but, with its own reads, its part of
         # the assignment probabilities
         own = sorted(p.name for p in tmp.glob(f"mp_{tag}1*"))
@@ -2469,21 +2498,27 @@ def phase_sharded(csr, R, T, device, tmp: Path, capture, counts_v4,
                    all_reduce_s=float(ar_s),
                    all_reduce_share_of_em=float(ar_s) / float(em_s),
                    l1_over_R_vs_one_process=l1, mass_rel_err=mass)
-        if tag == "halves":
+        boot = MULTI_BOOT.search(out[0][1])
+        assert boot and boot.group(1) == "2", out[0][1][-2000:]
+        res["bootstrap_s"] = float(boot.group(2))
+        if boot.group(3) is not None:
+            res["bootstrap_inputs_s"] = float(boot.group(3))
+        reps = replicates(tmp / f"mp_{tag}0")
+        assert reps.shape == (2, T) and np.isfinite(reps).all()
+        rep_mass = float(np.abs(reps.sum(axis=1) - kept).max() / kept)
+        assert rep_mass < 1e-5, f"replicate mass off by {rep_mass}"
+        res["replicate_mass_rel_err"] = rep_mass
+        if tag == "whole":
+            # process 0 ran the one-process run's batch on the same store
+            assert np.array_equal(reps, reps1), "replicates differ"
+            res["replicates_equal_one_process"] = True
+        else:
+            # one multinomial over both processes' reads
             parts = [prob_reads(tmp / f"mp_halves{i}.part{i}.prob")
                      for i in range(2)]
             whole = prob_reads(str(single) + ".prob")
             assert sorted(parts[0] + parts[1]) == sorted(whole)
             res["part_reads"] = [len(p) for p in parts]
-            import pyarrow.parquet as pq
-
-            reps = pq.read_table(tmp / "mp_halves0.infreps.pq")
-            reps = np.stack([np.asarray(reps[c]) for c in reps.column_names])
-            assert reps.shape == (2, T) and np.isfinite(reps).all()
-            # one multinomial over both processes' reads
-            rep_mass = float(np.abs(reps.sum(axis=1) - kept).max() / kept)
-            assert rep_mass < 1e-5, f"replicate mass off by {rep_mass}"
-            res["replicate_mass_rel_err"] = rep_mass
         procs[tag] = res
         for f in tmp.glob(f"mp_{tag}*"):
             f.unlink()
@@ -2492,10 +2527,94 @@ def phase_sharded(csr, R, T, device, tmp: Path, capture, counts_v4,
     out = dict(R=R, T=T, dtype="float32", **runs, m_steps_vs_plain=m_steps,
                launches=launched, one_process=dict(
                    wall_s=round(wall1, 2), run_s=round(single_s, 2),
-                   reads_kept=kept),
+                   bootstrap_s=single_boot_s, reads_kept=kept),
                **{
                    f"processes_{k}": v for k, v in procs.items()})
     emit("sharded", **out)
+    return out, launched
+
+
+def bench_main(argv, **env) -> tuple:
+    """`python -m oarfish_tpu_torch.bench ARGV` in this process, with the
+    environment `env`: (its one JSON line, what it ran, launches per
+    kernel), the counts set to 0 just before it."""
+    buf = io.StringIO()
+    reset_launch_counts()
+    with environment(**env), contextlib.redirect_stdout(buf):
+        res = bench_mod.main(argv)
+    launched = launch_counts()
+    lines = buf.getvalue().splitlines()
+    assert len(lines) == 1, lines
+    line = json.loads(lines[0])
+    assert line == res.line, (line, res.line)
+    return line, res, launched
+
+
+def phase_bench(R, T, device, tmp: Path, em_full) -> tuple:
+    """The port's benchmark through its entry point: `python -m
+    oarfish_tpu_torch.bench` with the default `v4` and with
+    `OARFISH_BENCH_IMPL=pallas` at the bench shape, then `--e2e --quick
+    --reps 1`. Exact launches for each (a loop of n iterations is n + 1
+    m-steps), the mass of its counts, and each bench's `ms_per_iter`
+    between its m-step's own time between CUDA events (`queued_ms`: the
+    card's time, which a loop timed without a synchronize could read
+    below; back to back from the host a `pallas` m-step takes the host's
+    pace, which the loop can match) and 5 times em_full_width's ms per
+    iteration of the same formulation. Returns (the phase's line,
+    launches per kernel)."""
+    from oarfish_tpu_torch.ops.em_fast import _m_step_fast
+
+    out, launched = {}, dict.fromkeys(KERNELS, 0)
+    for impl in ("v4", "pallas"):
+        line, res, run_launched = bench_main([], OARFISH_BENCH_IMPL=impl)
+        data = res.form.data
+        assert res.form.impl == impl and line["metric"] == "em_reads_per_sec"
+        assert torch.cuda.get_device_name(device) in line["unit"]
+        if impl == "v4":
+            want = v4_launches(res.m_steps, data.seg_id is not None)
+            step = em_v4.make_m_step(data, None)
+            x = torch.nn.functional.pad(uniform_init(data, torch.float32),
+                                        (0, data.t_space - T))
+        else:
+            want = dict.fromkeys(KERNELS, 0)
+            want["sorted_gather"] = res.m_steps
+            step = lambda p: _m_step_fast(data, p, None)  # noqa: E731
+            x = uniform_init(data, torch.float32)
+        assert run_launched == want, (impl, run_launched, want)
+        mass = float(abs(res.counts.sum() - R) / R)
+        assert mass < 1e-5, f"bench {impl}: mass off by {mass}"
+        m_step_ms = queued_ms(lambda: step(x), device)
+        limit = 5 * em_full[impl]["ms_per_iteration"]
+        assert m_step_ms <= line["ms_per_iter"] <= limit, (
+            impl, m_step_ms, line["ms_per_iter"], limit)
+        out[impl] = dict(line=line, m_steps=res.m_steps,
+                         launches=run_launched, mass_rel_err=mass,
+                         m_step_ms=m_step_ms, ms_per_iter_limit=limit)
+        for k, n in run_launched.items():
+            launched[k] += n
+        del data, res, step, x
+        torch.cuda.empty_cache()
+
+    # the end-to-end line: `auto` takes `pallas` at this size on the card
+    line, _, run_launched = bench_main(
+        ["--e2e", "--quick", "--reps", "1", "--work-dir",
+         str(tmp / "bench_e2e")])
+    assert line["metric"] == "e2e_bam_to_quant_s"
+    runs = [line["cold"], line["warm"]]
+    assert all(r["impl"] == "pallas" for r in runs), runs
+    want = dict.fromkeys(KERNELS, 0)
+    want["sorted_gather"] = sum(r["em_iters"] + 1 for r in runs)
+    assert run_launched == want, (run_launched, want)
+    meta = json.loads((tmp / "bench_e2e" / "out.meta_info.json").read_text())
+    kept = int(meta["discard_table"]["valid_best_aln"])
+    mass = max(abs(r["counts_sum"] - kept) / kept for r in runs)
+    assert mass < 1e-5, f"bench --e2e: mass off by {mass}"
+    out["e2e"] = dict(line=line, launches=run_launched, reads_kept=kept,
+                      mass_rel_err=mass)
+    for k, n in run_launched.items():
+        launched[k] += n
+    shutil.rmtree(tmp / "bench_e2e")
+    emit("bench", **out)
     return out, launched
 
 
@@ -2940,11 +3059,13 @@ def phase_covmodel_device_vs_host(bam: Path, argv, kept: int, device) -> dict:
     return res
 
 
-def measure_m_step(tag, m_step, init, device, profile_dir) -> dict:
+def measure_m_step(tag, m_step, init, device, profile_dir,
+                   once: str) -> dict:
     """An m-step alone (ms per call between CUDA events), 200 loop
     iterations with the host reading the stop flag every iteration
     against never reading it, and, with `profile_dir`, the m-step's kernel
-    launches and device time by name."""
+    launches and device time by name: a window of 20 calls, its m-steps
+    counted by the kernel `once`, which each launches once (`per_step`)."""
     from oarfish_tpu_torch.ops.em import em_loop
 
     def loop(min_iters):
@@ -2964,32 +3085,26 @@ def measure_m_step(tag, m_step, init, device, profile_dir) -> dict:
         loop_ms_per_iter_read_every_iter=float(np.median(every)),
         loop_ms_per_iter_runs=dict(never_read=never, read_every_iter=every),
     )
+    got = None
     if profile_dir is not None:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
-                m_step(init)
-            torch.cuda.synchronize(device)
-        # kernel rows only: operator rows repeat their kernels' time
-        rows = sorted(
-            (e for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and e.device_time_total > 0),
-            key=lambda e: -e.device_time_total)
+        got = profile_steps(lambda: m_step(init), device, 20, once=once)
+        res["m_step_device_ms"] = None  # not measured, unless whole
+    if got is not None:
+        by_time = sorted(got["device_us_per_step"].items(),
+                         key=lambda kv: -kv[1])
         Path(profile_dir).mkdir(parents=True, exist_ok=True)
         path = Path(profile_dir) / f"m_step_kernels_{tag}.json"
         with open(path, "w") as fh:
-            json.dump([dict(name=e.key[:160], calls_per_step=e.count / 20,
-                            device_us_per_step=e.device_time_total / 20)
-                       for e in rows], fh, indent=1)
+            json.dump([dict(name=name[:160],
+                            calls_per_step=got["calls_per_step"][name],
+                            device_us_per_step=us)
+                       for name, us in by_time], fh, indent=1)
         res["profile"] = str(path)
-        res["m_step_launches"] = sum(e.count for e in rows) / 20
-        res["m_step_device_ms"] = sum(
-            e.device_time_total for e in rows) / 20 / 1e3
+        res["profile_m_steps"] = got["steps"]
+        res["m_step_launches"] = got["launches"]
+        res["m_step_device_ms"] = got["device_ms"]
         res["device_us_by_kernel"] = {
-            e.key[:48]: round(e.device_time_total / 20, 1) for e in rows[:10]}
+            name[:48]: round(us, 1) for name, us in by_time[:10]}
     return res
 
 
@@ -3007,7 +3122,7 @@ def phase_em_breakdown(csr, T, device, profile_dir) -> dict:
     mult8 = torch.ones((8, data.num_reads), device=device)
     res = {"pallas": measure_m_step(
         "pallas", lambda p: _m_step_fast(data, p, None), init, device,
-        profile_dir)}
+        profile_dir, once="sorted_gather_kernel")}
     res["pallas"]["m_step_8_replicates_ms"] = time_ms(
         lambda: _m_step_fast(data, init.expand(8, -1), mult8), device)
     del data
@@ -3015,7 +3130,8 @@ def phase_em_breakdown(csr, T, device, profile_dir) -> dict:
     v4, _ = em_v4.EmV4Data.build(txp_id, w, boundaries, T, device=device)
     ext = torch.nn.functional.pad(init, (0, v4.t_space - T))
     res["v4"] = measure_m_step(
-        "v4", em_v4.make_m_step(v4, None), ext, device, profile_dir)
+        "v4", em_v4.make_m_step(v4, None), ext, device, profile_dir,
+        once="route_middle_kernel")
     mult1 = torch.ones(v4.row_space_r, device=device)
     replicate_step = em_v4.make_m_step(v4, mult1)
     res["v4"]["m_step_replicate_ms"] = time_ms(
@@ -3026,7 +3142,7 @@ def phase_em_breakdown(csr, T, device, profile_dir) -> dict:
         replicates=REPLICATES,
         **measure_m_step("v4_batch", em_v4.make_m_step(v4, mult8),
                          ext.expand(REPLICATES, -1).contiguous(), device,
-                         profile_dir))
+                         profile_dir, once="route_middle_kernel"))
     emit("em_breakdown", **res)
     return res
 
@@ -3060,22 +3176,25 @@ def main(argv=None) -> int:
     os.environ["OARFISH_PLAN_CACHE_DIR"] = str(tmp / "plans")
     try:
         smi = phase_env()
+        txp_id, w, boundaries, _, A = make_csr(R, T, seed=0)
+        csr = (txp_id, w, boundaries, A)
         phase_kernels()
-        csr = make_csr(R, T, seed=0)
         k1 = phase_k1_vs_plain(csr, T, device)
         k234 = phase_k2_k3_k4_vs_plain(csr, R, T, device)
 
         # the main paths: each run sets the launch counts to 0 before it
         # drives the port and reads them before any comparison
-        _, launches_em, counts_em = phase_em_full_width(
+        em_full, launches_em, counts_em = phase_em_full_width(
             csr, R, T, device, tmp, capture,
             fused=k234["plan"]["fused_middle"])
+        phase_segsum_replicates(csr, R, T, device)
         v3, launches_v3 = phase_em_v3(csr, R, T, device, tmp, capture,
                                       counts_em)
         cli, launches_cli = phase_cli_e2e(R, T, device, tmp, capture)
         _, launches_sharded = phase_sharded(
             csr, R, T, device, tmp, capture, counts_em["v4"],
             tmp / "e2e.bam")
+        _, launches_bench = phase_bench(R, T, device, tmp, em_full)
         phase_single_cell(device, tmp, capture)
         raw, launches_raw = phase_raw_reads(device, tmp, capture)
         (greads, gbam), (launches_greads, launches_gbam) = phase_genome(
@@ -3087,6 +3206,7 @@ def main(argv=None) -> int:
 
     by_path = {"em_full_width": launches_em, "em_v3": launches_v3,
                "cli_e2e": launches_cli, "sharded": launches_sharded,
+               "bench": launches_bench,
                "raw_reads": launches_raw, "genome_reads": launches_greads,
                "genome_bam": launches_gbam}
     # the raw-read and genome runs end in the same tail: at their sizes it

@@ -507,9 +507,14 @@ def _multiprocess_inference_and_write(
     info = get_json_info(args, opts, store.discard, digest, aln_time_s)
     write_output(args.output, info, txps_name, txps_len, counts, unique, total)
     if args.num_bootstraps > 0:
-        # replicates run on process 0's device; cheap next to the main EM
+        # replicates run on process 0's device alone, in batches of
+        # segment sums that cost about as many single runs: 8 replicates of
+        # a 2,000,000-read CSR took 22 s as one batch on one H100, 8 single
+        # runs 18 s, the main EM of 2 processes 4-5 s
+        t0 = time.time()
         data = build_em_inputs(store, T, opts.model_coverage, dens_prob,
                                dtype, device)
+        inputs_s = time.time() - t0
         breps = bootstrap_ops.bootstrap(
             data, args.num_bootstraps,
             max_iter=args.max_em_iter,
@@ -518,6 +523,8 @@ def _multiprocess_inference_and_write(
             seed=args.seed,
             accel=args.em_accel,
         )
+        log.info("%d bootstrap replicates on process 0 in %.3fs (inputs "
+                 "%.3fs)", args.num_bootstraps, time.time() - t0, inputs_s)
         write_infrep_file(args.output, np.asarray(breps))
     write_probs(args, args.output, store, counts, txps_name, opts)
     return counts
@@ -689,6 +696,9 @@ def quantify_bulk_alignments_from_bam(args: Args, opts: FilterOpts) -> np.ndarra
         raise
     if prebuilder is not None:
         prefetch = pf_box[0]
+    log.info("phase bulk.pack %s", " ".join(
+        f"{k}={v:.3f}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in pack_timings.items()))
     verify_header(header, args.alignments)
     txps_name = header.ref_names
     txps_len = np.asarray(header.ref_lengths, dtype=np.int64)

@@ -89,6 +89,46 @@ def test_m_step_batched_equals_unbatched(seed, R, T, max_k):
         assert torch.equal(got[b], tem._m_step(td, prev[b], mult[b]))
 
 
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_flat_batch_equals_single_runs(B, monkeypatch):
+    """A batch runs as `[B, A_pad]` flattened with shifted offsets: each
+    replicate's m-step and whole EM have the bits and iterations of its
+    run alone, and a batched loop makes that layout once."""
+    rng, _, _, td = both(1, 1500, 200, 30)
+    prev = torch.from_numpy(np.exp(rng.normal(0, 1, size=(B, 200))))
+    mult = torch.from_numpy(
+        rng.multinomial(1500, np.full(1500, 1 / 1500), size=B)
+        .astype(np.float64))
+    step = tem._m_step(td, prev, mult)
+    init = tem.uniform_init(td, F64)
+    built = []
+    build = tem.BatchSegments.build
+    monkeypatch.setattr(tem.BatchSegments, "build", staticmethod(
+        lambda data, n: built.append(n) or build(data, n)))
+    counts, niter = tem.run_em(td, init.expand(B, -1), 200, 1e-3,
+                               multiplicity=mult)
+    assert built == [B] and int(niter.max()) > 50  # once for every m-step
+    for b in range(B):
+        assert torch.equal(step[b], tem._m_step(td, prev[b], mult[b]))
+        one, n_one = tem.run_em(td, init, 200, 1e-3, multiplicity=mult[b])
+        assert torch.equal(counts[b], one) and int(niter[b]) == int(n_one)
+    assert built == [B]  # single runs make none
+
+
+def test_bootstrap_equals_single_runs():
+    """`bootstrap` (what process 0 of a multi-process run calls) gives 8
+    replicates in one batch with the bits of 8 single `run_em` calls with
+    the same multiplicities."""
+    _, _, _, td = both(0, 300, 40, 8)
+    got = tboot.bootstrap(td, 8, max_iter=120, seed=9)
+    mult = tboot.sample_multiplicities(np.random.default_rng(9), 8, 300)
+    init = tem.uniform_init(td, F64)
+    for b in range(8):
+        one, _ = tem.run_em(td, init, 120, 1e-3,
+                            multiplicity=torch.from_numpy(mult[b]))
+        np.testing.assert_array_equal(got[b], one.numpy())
+
+
 @pytest.mark.parametrize("seed,R,T,max_k", SHAPES)
 def test_run_em_matches_jax(seed, R, T, max_k):
     _, (txp_id, w, boundaries), jd, td = both(seed, R, T, max_k)
@@ -214,3 +254,26 @@ def test_segsum_em_bit_reproducible_on_card():
     a, na = tem.run_em(data, tem.uniform_init(data, torch.float32), 100, 1e-3)
     b, nb = tem.run_em(data, tem.uniform_init(data, torch.float32), 100, 1e-3)
     assert torch.equal(a, b) and int(na) == int(nb)
+
+
+@pytest.mark.cuda
+def test_segsum_batch_equals_serial_runs_on_card():
+    """On the card, with one transcript holding a quarter of the
+    alignments (the bench CSR's zipf head), replicate b of a batch of 8 has
+    the iterations and bits of its serial run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(4)
+    txp_id, w, _, read_id, R, T = random_csr(rng, 20_001, 500, 6)
+    txp_id[rng.random(len(txp_id)) < 0.25] = 0
+    data = tem.EmData.build(txp_id, w, read_id, R, T,
+                            dtype=torch.float32, device="cuda")
+    mult = torch.as_tensor(tboot.sample_multiplicities(rng, 8, R),
+                           device="cuda").float()
+    init = tem.uniform_init(data, torch.float32)
+    counts, niter = tem.run_em(data, init.expand(8, -1), 300, 1e-3,
+                               multiplicity=mult)
+    for b in range(8):
+        one, n_one = tem.run_em(data, init, 300, 1e-3, multiplicity=mult[b])
+        assert int(niter[b]) == int(n_one), b
+        assert torch.equal(counts[b], one), b

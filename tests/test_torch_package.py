@@ -276,7 +276,7 @@ def test_v4_is_ported_and_v3_is_not():
             torch_main(BAM + ["--em-impl", impl])
 
 
-@pytest.mark.parametrize("item", [5, 6, 7])
+@pytest.mark.parametrize("item", [5, 6, 7, 9])
 def test_roadmap_has_the_queue_items_named_in_errors(item):
     """Queue A keys its items by stable labels (`**A5:` ...), which errors
     once cited; each of these is recorded there as done, with its PR."""
