@@ -22,10 +22,16 @@ JSON object per phase goes to standard output:
                  together), with build seconds
   k1_vs_plain    sorted-gather kernel vs its plain version on the bench
                  CSR (R=2,000,000 reads, T=200,000 transcripts, A~6M
-                 alignments): bit-equal for f32/f64 and 1/8 replicates;
-                 kernel, plain and `index_select` times between CUDA
-                 events, and the profiler's device time per launch of the
-                 kernel and of `index_select`; the byte bound
+                 alignments), its table the m-step's flat [T + 1]:
+                 bit-equal for f32/f64 and 1/8 replicates, and to one
+                 `index_select` of the same function; kernel, plain and
+                 `index_select` times between CUDA events, and the
+                 profiler's device time per launch of the kernel (warm,
+                 L2 flushed, 8 replicates) and of `index_select` (1 and 8
+                 replicates); the byte bound of the plan's one byte an
+                 element, beside that of the earlier plan's 4-byte lane
+                 and 1-byte flag; probes of what bounds it (all codes 0,
+                 all rows pad, a memset of the output)
   k2_k3_k4_vs_plain  the routed (v4) plan of the same CSR, with its build
                  seconds and geometry and the seconds and bytes of its
                  composed source offsets; tile permute, route stage and
@@ -717,12 +723,12 @@ def queued_ms(fn, device, calls: int = 10) -> float:
     return a.elapsed_time(b) / calls
 
 
-def kernel_equals_plain(tab, base, lane, use_hi) -> float:
+def kernel_equals_plain(tab, base, code, table_rows) -> float:
     """Launch the kernel and hold it bit for bit against its plain
     version; returns the largest absolute difference (0.0)."""
-    got = sg.gather_rows_cuda(tab, base, lane, use_hi)
+    got = sg.gather_rows_cuda(tab, base, code, table_rows)
     torch.cuda.synchronize(tab.device)
-    want = sg.gather_rows_reference(tab, base, lane, use_hi)
+    want = sg.gather_rows_reference(tab, base, code, table_rows)
     assert got.shape == want.shape and got.dtype == want.dtype
     if not torch.equal(got, want):
         raise AssertionError(
@@ -730,6 +736,34 @@ def kernel_equals_plain(tab, base, lane, use_hi) -> float:
             f"({tab.dtype}, table {tuple(tab.shape)}, {base.shape[0]} rows)"
         )
     return float((got - want).abs().max())
+
+
+def k1_library(tab, base, code):
+    """One `index_select` that computes K1's function: the table with a
+    zero appended, and the flat index of every element, sent to that zero
+    where it falls outside [0, n). Returns (padded table, index)."""
+    n = tab.shape[-1]
+    lane, hi = sg.unpack_code(code)
+    idx = (base.unsqueeze(-1).long() + hi) * sg.LANES + lane
+    idx = torch.where((idx >= 0) & (idx < n), idx, n).reshape(-1)
+    return torch.nn.functional.pad(tab, (0, 1)), idx
+
+
+def k1_bytes(base, code, n: int, table_rows: int, B: int = 1) -> dict:
+    """The bytes K1's work moves in f32, each input read once and the output
+    written once: in the kernel's form (one byte of code for each element
+    of a row that is not all pad, 4 for each base, the flat table of n
+    values once, the output), and in the plan's earlier form (a 4-byte lane
+    and a 1-byte flag for every element, the table padded to S*128). The
+    operations: an add and two compares an element."""
+    n_rows = base.shape[0]
+    live = int(((base + 1 >= 0) & (base < table_rows)).sum())
+    L = n_rows * sg.LANES
+    new = live * sg.LANES + n_rows * 4 + B * (L + n) * 4
+    old = L * (4 + 1) + n_rows * 4 + B * (L + table_rows * sg.LANES) * 4
+    return dict(live_rows=live, bytes_old_form=old,
+                bound_ms_old_form=old / HBM_BYTES_PER_S * 1e3,
+                **bound(new, 3 * L * B))
 
 
 def bit_equal(name: str, got: torch.Tensor, want: torch.Tensor,
@@ -911,6 +945,14 @@ def phase_kernels() -> None:
 
 
 def phase_k1_vs_plain(csr, T, device) -> dict:
+    """K1 on the bench CSR's `pallas` plan, its table the m-step's `[T +
+    1]` (f32 / f64, 1 / 8 replicates), bit for bit against its plain
+    version and one `index_select` computing the same function; event and
+    device times (warm, with the L2 cache flushed before each launch, at 8
+    replicates); and what bounds it: the same launch on the plan with
+    every code 0 (the table reads fall on one value a row, so the stream
+    of codes and outputs is what is left), on the plan with every row a
+    pad row (the output alone), and a memset of the output."""
     txp_id, w, boundaries, A = csr
     t0 = time.time()
     data, _ = FastEmData.build(
@@ -919,53 +961,70 @@ def phase_k1_vs_plain(csr, T, device) -> dict:
     )
     build_s = time.time() - t0
     assert data.use_pallas_gather, "gather plan was turned off"
-    n_rows, S = data.g_rows, data.g_table_rows
+    n_rows, S, n = data.g_rows, data.g_table_rows, T + 1
     L = n_rows * sg.LANES
     rng = np.random.default_rng(1)
     kernel = sg.gather_rows_cuda
+    args = (data.g_p0, data.g_code, S)
 
     max_err = 0.0
     for dtype in (torch.float32, torch.float64):
         for B in (1, 8):
-            shape = (S, sg.LANES) if B == 1 else (B, S, sg.LANES)
+            shape = (n,) if B == 1 else (B, n)
             tab = torch.as_tensor(rng.random(shape), device=device).to(dtype)
-            max_err = max(max_err, kernel_equals_plain(
-                tab, data.g_p0, data.g_lane, data.g_hi))
+            max_err = max(max_err, kernel_equals_plain(tab, *args))
+            padded, idx = k1_library(tab, data.g_p0, data.g_code)
+            bit_equal("index_select of K1's function",
+                      padded.index_select(-1, idx),
+                      kernel(tab, *args).reshape(*shape[:-1], L),
+                      against="the kernel")
 
     # times at the main path's shapes: f32, one table and 8 replicates
-    tab1 = torch.as_tensor(rng.random((S, sg.LANES)), device=device).float()
-    tab8 = torch.as_tensor(rng.random((8, S, sg.LANES)), device=device).float()
-    row = data.g_p0.unsqueeze(-1).long() + data.g_hi.long()
-    idx = (row.clamp(0, S - 1) * sg.LANES + data.g_lane.long()).reshape(-1)
-    flat1 = tab1.reshape(-1)
-    args = (data.g_p0, data.g_lane, data.g_hi)
-    ms = time_ms(lambda: kernel(tab1, *args), device)
-    ms_b8 = time_ms(lambda: kernel(tab8, *args), device)
-    plain_ms = time_ms(lambda: sg.gather_rows_reference(tab1, *args), device)
-    library_ms = time_ms(lambda: flat1.index_select(0, idx), device)
+    tab1 = torch.as_tensor(rng.random(n), device=device).float()
+    tab8 = torch.as_tensor(rng.random((8, n)), device=device).float()
+    pad1, idx = k1_library(tab1, data.g_p0, data.g_code)
+    pad8 = torch.nn.functional.pad(tab8, (0, 1))
+    flush = l2_flush(device)
+
+    def cold():
+        flush()
+        kernel(tab1, *args)
+
+    zero_codes = torch.zeros_like(data.g_code)
+    all_pad = torch.full_like(data.g_p0, -2)
+    out1 = torch.empty(L, device=device)
     # between events, 10 calls this short measure the host's time to launch
     # them; the profiler reads the card's own
-    dev_ms = device_ms(lambda: kernel(tab1, *args), device)
-    library_dev_ms = device_ms(lambda: flat1.index_select(0, idx), device)
-
-    # least time for the same work: every input read once, the output
-    # written once, against the card's memory rate; the kernel does one
-    # integer add and two compares per element
-    nbytes = L * (4 + 1 + 4) + n_rows * 4 + S * sg.LANES * 4
-    nbytes_b8 = L * (4 + 1) + n_rows * 4 + 8 * (L + S * sg.LANES) * 4
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = 3 * L / F32_OPS_PER_S * 1e3
     out = dict(
-        A=A, n_rows=n_rows, table_rows=S, out_len=L,
+        A=A, n_rows=n_rows, table_rows=S, table_len=n, out_len=L,
         pad_share=round(1.0 - A / L, 4), layout_build_s=round(build_s, 2),
         bit_equal=True, max_abs_err=max_err,
-        ms=ms, ms_b8=ms_b8, plain_ms=plain_ms, library_ms=library_ms,
-        device_ms=dev_ms, library_device_ms=library_dev_ms,
-        bound_ms=max(bytes_ms, ops_ms),
-        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        bytes=nbytes,
-        bound_ms_b8=nbytes_b8 / HBM_BYTES_PER_S * 1e3, bytes_b8=nbytes_b8,
+        plan_bytes=nbytes(data.g_p0, data.g_code),
+        ms=time_ms(lambda: kernel(tab1, *args), device),
+        ms_b8=time_ms(lambda: kernel(tab8, *args), device),
+        plain_ms=time_ms(lambda: sg.gather_rows_reference(tab1, *args),
+                         device),
+        library_ms=time_ms(lambda: pad1.index_select(0, idx), device),
+        library_ms_b8=time_ms(lambda: pad8.index_select(1, idx), device),
+        device_ms=device_ms(lambda: kernel(tab1, *args), device),
+        device_ms_l2_flushed=device_ms(cold, device,
+                                       only="sorted_gather_kernel"),
+        device_ms_b8=device_ms(lambda: kernel(tab8, *args), device),
+        library_device_ms=device_ms(lambda: pad1.index_select(0, idx),
+                                    device),
+        library_device_ms_b8=device_ms(lambda: pad8.index_select(1, idx),
+                                       device),
+        probe_device_ms=dict(
+            codes_zero=device_ms(
+                lambda: kernel(tab1, data.g_p0, zero_codes, S), device),
+            all_pad=device_ms(
+                lambda: kernel(tab1, all_pad, data.g_code, S), device),
+            memset_output=device_ms(out1.zero_, device)),
+        **k1_bytes(data.g_p0, data.g_code, n, S),
     )
+    b8 = k1_bytes(data.g_p0, data.g_code, n, S, B=8)
+    out.update(bytes_b8=b8["bytes"], bound_ms_b8=b8["bound_ms"],
+               bound_ms_b8_old_form=b8["bound_ms_old_form"])
     emit("k1_vs_plain", **out)
     return out
 
@@ -1402,6 +1461,9 @@ def phase_k2_k3_k4_vs_plain(csr, R, T, device) -> dict:
         library_ms=time_ms(
             lambda: [flat8[b].index_select(0, idx_expand) for b in range(B)],
             device),
+        library_device_ms=device_ms(
+            lambda: [flat8[b].index_select(0, idx_expand) for b in range(B)],
+            device),
         device_ms=device_ms(lambda: rs.route_stage_cuda(x8, ex, mul=w_txp),
                             device),
         **bound(nbytes(x8, w_txp, y8, pa.s1_r1, pa.s1_src, pa.s1_row,
@@ -1419,6 +1481,9 @@ def phase_k2_k3_k4_vs_plain(csr, R, T, device) -> dict:
         ms=time_ms(lambda: rs.route_stage_cuda(a3b[0], red), device),
         plain_ms=time_ms(lambda: rs.route_stage_reference(*a3b), device, 3, 3),
         library_ms=time_ms(
+            lambda: [flat8[b].index_select(0, idx_reduce) for b in range(B)],
+            device),
+        library_device_ms=device_ms(
             lambda: [flat8[b].index_select(0, idx_reduce) for b in range(B)],
             device),
         device_ms=device_ms(lambda: rs.route_stage_cuda(a3b[0], red), device),
@@ -1839,20 +1904,16 @@ def v3_kernels_vs_plain(data, device) -> dict:
     def values(*shape):
         return (torch.rand(*shape, generator=gen) - 0.3).to(device)
 
-    # K1: the table of an m-step, the plan's rows spread over NPAD / 128
+    # K1: the table of an m-step ([T + 1]), the plan's rows spread over
+    # NPAD / 128
     S, NR = data.g_table_rows, data.g_rows
-    tab = values(S, L)
-    args = (data.g_base, data.g_lane, data.g_hi)
+    tab = values(data.num_txps + 1)
+    args = (data.g_base, data.g_code, S)
     err = kernel_equals_plain(tab, *args)
-    row = data.g_base.unsqueeze(-1).long() + data.g_hi.long()
-    valid = (row >= 0) & (row < S)
-    # pad rows read a zero appended after the table
-    flat = torch.cat([tab.reshape(-1), tab.new_zeros(1)])
-    idx = torch.where(valid, row.clamp(0, S - 1) * L + data.g_lane.long(),
-                      S * L).reshape(-1)
-    assert torch.equal(flat.index_select(0, idx).reshape(NR, L),
-                       sg.gather_rows_reference(tab, *args))
-    n_bytes = NR * L * (4 + 1 + 4) + NR * 4 + S * L * 4
+    flat, idx = k1_library(tab, data.g_base, data.g_code)
+    bit_equal("index_select of K1's function (v3)", flat.index_select(0, idx),
+              sg.gather_rows_cuda(tab, *args).reshape(-1),
+              against="the kernel")
     k1 = dict(
         n_rows=NR, table_rows=S, pad_rows=int((data.g_base < 0).sum()),
         max_abs_err=err,
@@ -1866,7 +1927,7 @@ def v3_kernels_vs_plain(data, device) -> dict:
             only="sorted_gather_kernel"),
         library_device_ms=device_ms(lambda: flat.index_select(0, idx),
                                     device),
-        **bound(n_bytes, 3 * NR * L))
+        **k1_bytes(data.g_base, data.g_code, tab.shape[0], S))
     # K2: stages 1 and 3 of both permutes, at R1 / R3 rows
     k2 = {}
     for name in ("p1", "p2"):
@@ -2195,11 +2256,10 @@ def phase_cli_e2e(R, T, device, tmp: Path, capture):
     plan = sg.SortedGatherPlan.build(np.sort(store.txp_id), T + 1,
                                      device=device)
     rng = np.random.default_rng(2)
-    tab = torch.as_tensor(
-        rng.random((plan.table_rows, sg.LANES)), device=device).float()
-    k1_err = kernel_equals_plain(tab, plan.base, plan.lane, plan.use_hi)
-    k1_ms = time_ms(lambda: sg.gather_rows_cuda(
-        tab, plan.base, plan.lane, plan.use_hi), device)
+    tab = torch.as_tensor(rng.random(T + 1), device=device).float()
+    k1_args = (plan.base, plan.code, plan.table_rows)
+    k1_err = kernel_equals_plain(tab, *k1_args)
+    k1_ms = time_ms(lambda: sg.gather_rows_cuda(tab, *k1_args), device)
     res["pallas_run"] = dict(
         R=SMALL_READS, reads_kept=kept2, wall_s=round(wall2, 2),
         iterations=iters2, em_s=em_s2, launches=launched2,
@@ -2780,9 +2840,9 @@ def recording_k1():
     calls = []
     real = em_fast.gather_rows
 
-    def record(table2d, base, lane, use_hi):
-        out = real(table2d, base, lane, use_hi)
-        calls.append((table2d, base, lane, use_hi, out))
+    def record(table, base, code, table_rows):
+        out = real(table, base, code, table_rows)
+        calls.append((table, base, code, table_rows, out))
         return out
 
     em_fast.gather_rows = record
@@ -2796,14 +2856,14 @@ def k1_calls_equal_plain(calls) -> dict:
     """Each recorded launch's output bit for bit against the plain version
     on its own inputs (the run's table of each m-step and its plan)."""
     err = 0.0
-    for tab, base, lane, use_hi, out in calls:
+    for tab, base, code, table_rows, out in calls:
         err = max(err, bit_equal(
             "sorted_gather in the run", out,
-            sg.gather_rows_reference(tab, base, lane, use_hi)))
-    tab, base = calls[0][:2]
+            sg.gather_rows_reference(tab, base, code, table_rows)))
+    tab, base, _, table_rows = calls[0][:4]
     return dict(calls=len(calls), n_rows=int(base.shape[0]),
-                table_rows=int(tab.shape[-2]), dtype=str(tab.dtype),
-                bit_equal=True, max_abs_err=err)
+                table_rows=table_rows, table_len=int(tab.shape[-1]),
+                dtype=str(tab.dtype), bit_equal=True, max_abs_err=err)
 
 
 def run_mode(argv, out: Path, device, capture, setup="reads"):
@@ -3263,6 +3323,14 @@ def main(argv=None) -> int:
                   cli["pallas_run"]["k1_plan"]["max_abs_err"])),
               **device_times(k1), ms_8_replicates=k1["ms_b8"],
               bound_ms_8_replicates=k1["bound_ms_b8"],
+              device_ms_l2_flushed=k1["device_ms_l2_flushed"],
+              device_ms_8_replicates=k1["device_ms_b8"],
+              library_ms_8_replicates=k1["library_ms_b8"],
+              library_device_ms_8_replicates=k1["library_device_ms_b8"],
+              bound_ms_old_form=k1["bound_ms_old_form"],
+              bound_ms_8_replicates_old_form=k1["bound_ms_b8_old_form"],
+              probe_device_ms=k1["probe_device_ms"],
+              bound_ms_old_form_v3=v3k1["bound_ms_old_form"],
               **also(v3k1, "v3")),
         entry("tile_permute",
               dict(k2["t_in"], max_abs_err=max(

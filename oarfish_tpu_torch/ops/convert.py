@@ -23,7 +23,7 @@ import torch
 from .em import EmData, csr_offsets
 from .em_fast import FastEmData, offset_tables
 from .em_v4 import EmV4Data, row_sources
-from .sorted_gather import SortedGatherPlan
+from .sorted_gather import SortedGatherPlan, pack_code
 from .static_permute import ROUTE_TABLES, BatchTilePermute, GlobalRoutePlan
 
 
@@ -67,8 +67,7 @@ def gather_plan_from_numpy(
 ) -> SortedGatherPlan:
     return SortedGatherPlan(
         base=_tensor(_base_rows(base), device, torch.int32),
-        lane=_tensor(lane, device, torch.int32),
-        use_hi=_tensor(np.asarray(use_hi).astype(np.uint8), device),
+        code=_tensor(pack_code(lane, use_hi), device),
         src_pos=np.asarray(src_pos, dtype=np.int64),
         n_rows=int(n_rows),
         table_rows=int(table_rows),
@@ -100,9 +99,8 @@ def fast_em_data_from_numpy(
         off_inner=off_inner,
         g_p0=(_tensor(_base_rows(g_p0), device, torch.int32)
               if has_plan else None),
-        g_lane=_tensor(g_lane, device, torch.int32) if has_plan else None,
-        g_hi=(_tensor(np.asarray(g_hi).astype(np.uint8), device)
-              if has_plan else None),
+        g_code=(_tensor(pack_code(g_lane, g_hi), device)
+                if has_plan else None),
         bucket_rows=tuple(int(r) for r in bucket_rows),
         num_reads=int(num_reads),
         num_txps=int(num_txps),

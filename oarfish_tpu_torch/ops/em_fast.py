@@ -37,7 +37,7 @@ import torch
 from ..constants import EM_DENOM_THRESH
 from ..device import resolve_device
 from .em import em_loop, finish_em, squarem_em
-from .sorted_gather import SortedGatherPlan, gather_rows, table_view
+from .sorted_gather import SortedGatherPlan, gather_rows
 
 log = logging.getLogger("oarfish_tpu_torch")
 
@@ -119,8 +119,7 @@ class FastEmData:
     off_inner: torch.Tensor  # [T+1] bool: offset % TILE != 0
     # optional sorted-gather plan arrays (ops/sorted_gather.py)
     g_p0: Optional[torch.Tensor]  # [g_rows] i32 base table row
-    g_lane: Optional[torch.Tensor]  # [g_rows, 128] i32
-    g_hi: Optional[torch.Tensor]  # [g_rows, 128] u8
+    g_code: Optional[torch.Tensor]  # [g_rows, 128] u8: lane | use_hi << 7
     bucket_rows: Tuple[int, ...]
     num_reads: int
     num_txps: int
@@ -274,8 +273,7 @@ class FastEmData:
             off_prev=off_prev,
             off_inner=off_inner,
             g_p0=plan.base if plan is not None else None,
-            g_lane=plan.lane if plan is not None else None,
-            g_hi=plan.use_hi if plan is not None else None,
+            g_code=plan.code if plan is not None else None,
             bucket_rows=tuple(bucket_rows),
             num_reads=R,
             num_txps=T,
@@ -311,8 +309,7 @@ def _m_step_fast(
     # m-step: inc in CSC order, segmented sum via hierarchical cumsum-diff
     if data.use_pallas_gather:
         gathered = gather_rows(
-            table_view(prev_ext, data.g_table_rows),
-            data.g_p0, data.g_lane, data.g_hi,
+            prev_ext, data.g_p0, data.g_code, data.g_table_rows,
         ).reshape(*lead, -1)
         contrib_csc = gathered * data.w_csc
     else:

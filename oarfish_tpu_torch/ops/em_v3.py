@@ -37,7 +37,7 @@ from ..constants import EM_DENOM_THRESH
 from ..device import resolve_device
 from .em import em_loop, finish_em, squarem_em
 from .em_fast import TILE, offset_sums, offset_tables
-from .sorted_gather import LANES, SortedGatherPlan, gather_rows, table_view
+from .sorted_gather import LANES, SortedGatherPlan, gather_rows
 from .static_permute import (
     CH,
     GlobalPermute,
@@ -52,8 +52,7 @@ class EmV3Data:
 
     # the sorted prev-gather, its rows spread over the rounded row count
     g_base: torch.Tensor  # [g_rows] i32 base table row (-2: all-pad row)
-    g_lane: torch.Tensor  # [g_rows, 128] i32
-    g_hi: torch.Tensor  # [g_rows, 128] u8
+    g_code: torch.Tensor  # [g_rows, 128] u8: lane | use_hi << 7
     w_csc: torch.Tensor  # [NPAD] weights in plan layout (pads 0)
     txp_offsets: torch.Tensor  # [T+1] i64 offsets in plan coordinates
     off_tile: torch.Tensor  # [T+1] i64 (`em_fast.offset_tables`)
@@ -177,10 +176,8 @@ class EmV3Data:
         new_of_old = (np.arange(n_old, dtype=np.int64) * NR) // n_old
         g_base = np.full(NR, -2, dtype=np.int32)
         g_base[new_of_old] = plan.base.numpy()
-        g_lane = np.zeros((NR, LANES), dtype=np.int32)
-        g_lane[new_of_old] = plan.lane.numpy()
-        g_hi = np.zeros((NR, LANES), dtype=np.uint8)
-        g_hi[new_of_old] = plan.use_hi.numpy()
+        g_code = np.zeros((NR, LANES), dtype=np.uint8)
+        g_code[new_of_old] = plan.code.numpy()
         src_pos = np.full((NR, LANES), -1, dtype=np.int64)
         src_pos[new_of_old] = plan.src_pos.reshape(n_old, LANES)
         src_pos = src_pos.reshape(-1)
@@ -225,8 +222,7 @@ class EmV3Data:
         off_tile, off_prev, off_inner = offset_tables(offsets_t)
         data = EmV3Data(
             g_base=dev(g_base),
-            g_lane=dev(g_lane),
-            g_hi=dev(g_hi),
+            g_code=dev(g_code),
             w_csc=dev(w_csc, dtype),
             txp_offsets=offsets_t,
             off_tile=off_tile,
@@ -265,8 +261,7 @@ def _m_step_v3(data: EmV3Data, prev: torch.Tensor,
     permutes (two per GlobalPermute)."""
     prev_ext = torch.nn.functional.pad(prev, (0, 1))
     gathered = gather_rows(
-        table_view(prev_ext, data.g_table_rows),
-        data.g_base, data.g_lane, data.g_hi,
+        prev_ext, data.g_base, data.g_code, data.g_table_rows,
     ).reshape(-1)
     contrib_csc = gathered * data.w_csc
 

@@ -3,13 +3,17 @@
 Counterpart of the JAX package's `ops/gather_pallas.py`. The index array is
 laid out `[n_rows, 128]` and row-split at pack time so that each row's
 index span is < 128; every element then lives in one of two consecutive
-rows of the `[S, 128]` view of the table (`t = r*128 + c`), and the plan
-stores, per output row, the base table row and, per element, the lane
-and whether it sits in `base + 1`:
+rows of the `[S, 128]` view of the table (`t = r*128 + c`). The plan
+stores, per output row, the base table row and, per element, one byte:
+the lane in the low 7 bits and, in the top bit, whether the element sits
+in `base + 1` (`code = lane | use_hi << 7`):
 
-    out[r, l] = table2d[base[r] + use_hi[r, l], lane[r, l]]
+    out[r, l] = table[(base[r] + use_hi[r, l]) * 128 + lane[r, l]]
 
-with 0 for pad rows (`base < 0`) and for a table row outside `[0, S)`.
+with 0 for a table row outside `[0, S)` (pad rows have `base = -2`) and
+for an index at or past the table's length `n <= S*128`. The table is
+read as it is, `[n]` or `[B, n]`: the JAX package pads it with zeros to
+`S*128`, which gives the same values.
 
 On a CUDA tensor `sorted_gather` launches the hand-written kernel
 `csrc/sorted_gather.cu` (built at first use by `kernels/build.py`) or
@@ -24,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -32,13 +37,34 @@ from ..device import resolve_device
 
 LANES = 128
 CHUNK_ROWS = 256  # n_rows is padded to a multiple of this, as in the JAX plan
+HI_BIT = 7  # the code's bit that says "in base + 1"; the lane is below it
 
 # number of kernel launches made by `sorted_gather` in this process
 launch_count = 0
 
 _KERNEL_DTYPES = {torch.float32: "sorted_gather_f32",
                   torch.float64: "sorted_gather_f64"}
-_ALIGN = 16  # the kernel moves lane / output as 16-byte vectors
+_ALIGN = 16  # the kernel reads codes as words, writes 16-byte vectors
+
+
+def pack_code(lane, use_hi) -> np.ndarray:
+    """The plan's one byte an element from a lane (0..127) and a row flag
+    (0 or 1) of the same shape."""
+    lane = np.asarray(lane)
+    hi = np.asarray(use_hi).astype(np.int64)
+    if lane.shape != hi.shape:
+        raise ValueError(f"lane {lane.shape} and use_hi {hi.shape} differ")
+    if lane.size and (lane.min() < 0 or lane.max() >= LANES):
+        raise ValueError(f"lanes must lie in [0, {LANES})")
+    if hi.size and (hi.min() < 0 or hi.max() > 1):
+        raise ValueError("use_hi must be 0 or 1")
+    return (lane.astype(np.int64) | (hi << HI_BIT)).astype(np.uint8)
+
+
+def unpack_code(code: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(lane, use_hi) of a code tensor, as int64."""
+    code = code.long()
+    return code & (LANES - 1), code >> HI_BIT
 
 
 @dataclass(frozen=True)
@@ -46,8 +72,7 @@ class SortedGatherPlan:
     """Static routing for gathering `table[idx]` (idx sorted)."""
 
     base: torch.Tensor  # [n_rows] i32: each row's base table-row (<0 = pad)
-    lane: torch.Tensor  # [n_rows, 128] i32 lane index
-    use_hi: torch.Tensor  # [n_rows, 128] u8: element lives in base+1
+    code: torch.Tensor  # [n_rows, 128] u8: lane | use_hi << 7
     src_pos: np.ndarray  # [n_rows*128] i64: original position (or -1 pad)
     n_rows: int
     table_rows: int  # S
@@ -91,7 +116,6 @@ class SortedGatherPlan:
             ridx[i, k:] = idx_sorted[s]  # pad with the row's base index
             rpos[i, :k] = np.arange(s, e)
         r = ridx // LANES
-        c = (ridx % LANES).astype(np.int32)
         base = r.min(axis=1) if n_rows else np.zeros(0, np.int64)
         hi = r - base[:, None]
         assert hi.size == 0 or hi.max() <= 1, (
@@ -105,8 +129,7 @@ class SortedGatherPlan:
 
         return SortedGatherPlan(
             base=torch.as_tensor(base_i32, device=device),
-            lane=torch.as_tensor(c, device=device),
-            use_hi=torch.as_tensor(hi.astype(np.uint8), device=device),
+            code=torch.as_tensor(pack_code(ridx % LANES, hi), device=device),
             src_pos=rpos.reshape(-1),
             n_rows=n_rows,
             table_rows=S,
@@ -114,32 +137,33 @@ class SortedGatherPlan:
         )
 
 
-def table_view(table: torch.Tensor, table_rows: int) -> torch.Tensor:
-    """Zero-pad the last axis of `table` ([n] or [B, n]) to `S*128` and
-    view it as `[S, 128]` / `[B, S, 128]`."""
-    pad = table_rows * LANES - table.shape[-1]
-    if pad < 0:
+def _check_table_and_code(table: torch.Tensor, code: torch.Tensor,
+                          table_rows: int) -> None:
+    """What both versions refuse: a code that is not one byte an element
+    (an int32 lane, say), and a table longer than the plan's `S*128`."""
+    if code.dtype != torch.uint8:
+        raise TypeError(f"code must be torch.uint8, got {code.dtype}")
+    if table.shape[-1] > table_rows * LANES:
         raise ValueError(
             f"table of {table.shape[-1]} entries does not fit "
             f"{table_rows} rows of {LANES}"
         )
-    padded = torch.nn.functional.pad(table, (0, pad))
-    return padded.reshape(*table.shape[:-1], table_rows, LANES)
 
 
 def gather_rows_reference(
-    table2d: torch.Tensor, base: torch.Tensor, lane: torch.Tensor,
-    use_hi: torch.Tensor,
+    table: torch.Tensor, base: torch.Tensor, code: torch.Tensor,
+    table_rows: int,
 ) -> torch.Tensor:
-    """Plain torch version of the kernel: `[.., S, 128]` -> `[.., n_rows,
+    """Plain torch version of the kernel: `[.., n]` -> `[.., n_rows,
     128]`."""
-    S = table2d.shape[-2]
-    row = base.unsqueeze(-1).long() + use_hi.long()
-    valid = (row >= 0) & (row < S)
-    flat = (row.clamp(0, max(S - 1, 0)) * LANES + lane.long()).reshape(-1)
-    lead = table2d.shape[:-2]
-    vals = table2d.reshape(*lead, S * LANES).index_select(-1, flat)
-    vals = vals.reshape(*lead, *lane.shape)
+    _check_table_and_code(table, code, table_rows)
+    n = table.shape[-1]
+    lane, hi = unpack_code(code)
+    idx = (base.unsqueeze(-1).long() + hi) * LANES + lane
+    valid = (idx >= 0) & (idx < n)
+    lead = table.shape[:-1]
+    vals = table.index_select(-1, idx.clamp(0, n - 1).reshape(-1))
+    vals = vals.reshape(*lead, *code.shape)
     return torch.where(valid, vals, torch.zeros_like(vals))
 
 
@@ -164,49 +188,49 @@ def _kernel_fn(dtype: torch.dtype):
     fn = getattr(lib, _KERNEL_DTYPES[dtype])
     if fn.argtypes is None:
         p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, p, ctypes.c_int64, ctypes.c_int32,
-                       ctypes.c_int32, p]
+        fn.argtypes = [p, p, p, p, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_int32, ctypes.c_int32, p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def gather_rows_cuda(
-    table2d: torch.Tensor, base: torch.Tensor, lane: torch.Tensor,
-    use_hi: torch.Tensor,
+    table: torch.Tensor, base: torch.Tensor, code: torch.Tensor,
+    table_rows: int,
 ) -> torch.Tensor:
-    """Launch the CUDA kernel: `[S, 128]` or `[B, S, 128]` table ->
+    """Launch the CUDA kernel: `[n]` or `[B, n]` table (`n <= S*128`) ->
     `[n_rows, 128]` / `[B, n_rows, 128]` of the table's dtype. Raises on
     anything the kernel does not take and on a refused launch."""
     global launch_count
-    if not table2d.is_cuda:
+    if not table.is_cuda:
         raise ValueError("gather_rows_cuda needs a CUDA tensor")
-    if table2d.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"no sorted-gather kernel for {table2d.dtype}")
-    if table2d.dim() not in (2, 3) or table2d.shape[-1] != LANES:
+    if table.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"no sorted-gather kernel for {table.dtype}")
+    if table.dim() not in (1, 2):
         raise ValueError(
-            f"table must be [S, {LANES}] or [B, S, {LANES}], got "
-            f"{tuple(table2d.shape)}"
-        )
-    if not table2d.is_contiguous():
+            f"table must be [n] or [B, n], got {tuple(table.shape)}")
+    if not table.is_contiguous():
         raise ValueError("table must be contiguous")
-    dev = table2d.device
+    _check_table_and_code(table, code, table_rows)
+    if table_rows >= 2**31:
+        raise ValueError(f"{table_rows} table rows are too many")
+    dev = table.device
     n_rows = base.shape[0]
     _check("base", base, torch.int32, (n_rows,), dev)
-    _check("lane", lane, torch.int32, (n_rows, LANES), dev)
-    _check("use_hi", use_hi, torch.uint8, (n_rows, LANES), dev)
-    batch = table2d.shape[0] if table2d.dim() == 3 else 1
+    _check("code", code, torch.uint8, (n_rows, LANES), dev)
+    batch = table.shape[0] if table.dim() == 2 else 1
     if n_rows * LANES >= 2**31 * 256:
         raise ValueError("output too large for one launch")
-    S = table2d.shape[-2]
     out = torch.empty(
-        (*table2d.shape[:-2], n_rows, LANES), dtype=table2d.dtype, device=dev
+        (*table.shape[:-1], n_rows, LANES), dtype=table.dtype, device=dev
     )
-    fn = _kernel_fn(table2d.dtype)
+    fn = _kernel_fn(table.dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
-            table2d.data_ptr(), base.data_ptr(), lane.data_ptr(),
-            use_hi.data_ptr(), out.data_ptr(), n_rows, S, batch, stream,
+            table.data_ptr(), base.data_ptr(), code.data_ptr(),
+            out.data_ptr(), n_rows, table.shape[-1], table_rows, batch,
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"sorted_gather kernel launch failed: CUDA error {err}")
@@ -215,22 +239,20 @@ def gather_rows_cuda(
 
 
 def gather_rows(
-    table2d: torch.Tensor, base: torch.Tensor, lane: torch.Tensor,
-    use_hi: torch.Tensor,
+    table: torch.Tensor, base: torch.Tensor, code: torch.Tensor,
+    table_rows: int,
 ) -> torch.Tensor:
     """The kernel for a CUDA table, the plain version for a CPU table."""
-    if table2d.is_cuda:
-        return gather_rows_cuda(table2d, base, lane, use_hi)
-    return gather_rows_reference(table2d, base, lane, use_hi)
+    if table.is_cuda:
+        return gather_rows_cuda(table, base, code, table_rows)
+    return gather_rows_reference(table, base, code, table_rows)
 
 
 def sorted_gather(table: torch.Tensor, plan: SortedGatherPlan) -> torch.Tensor:
     """Gather `table[idx]` for the plan's (sorted, static) indices; `table`
     is `[n]` or `[B, n]`. Returns the `[.., n_rows*128]` padded result;
     `plan.src_pos` maps positions back (-1 = padding)."""
-    out = gather_rows(
-        table_view(table, plan.table_rows), plan.base, plan.lane, plan.use_hi
-    )
+    out = gather_rows(table, plan.base, plan.code, plan.table_rows)
     return out.reshape(*table.shape[:-1], plan.out_len)
 
 
@@ -238,7 +260,5 @@ def sorted_gather_reference(
     table: torch.Tensor, plan: SortedGatherPlan
 ) -> torch.Tensor:
     """`sorted_gather` in plain torch indexing, on any device."""
-    out = gather_rows_reference(
-        table_view(table, plan.table_rows), plan.base, plan.lane, plan.use_hi
-    )
+    out = gather_rows_reference(table, plan.base, plan.code, plan.table_rows)
     return out.reshape(*table.shape[:-1], plan.out_len)

@@ -73,7 +73,7 @@ def assert_same_layout(a, b):
     for f in ("bucket_txp", "bucket_w"):
         for x, y in zip(getattr(a, f), getattr(b, f), strict=True):
             assert torch.equal(x, y) and x.dtype == y.dtype, f
-    for f in ("g_p0", "g_lane", "g_hi"):
+    for f in ("g_p0", "g_code"):
         x, y = getattr(a, f), getattr(b, f)
         assert (x is None) == (y is None), f
         if x is not None:

@@ -110,9 +110,12 @@ def test_host_tables_equal_jax(v3):
     # the K1 plan: base as the port's [n_rows], the rest as they are
     np.testing.assert_array_equal(td.g_base.numpy(),
                                   np.asarray(jd.g_base)[:, 0])
-    np.testing.assert_array_equal(td.g_lane.numpy(), np.asarray(jd.g_lane))
-    np.testing.assert_array_equal(td.g_hi.numpy(),
-                                  np.asarray(jd.g_hi).astype(np.uint8))
+    # lane and use_hi as one byte an element (`sorted_gather.pack_code`)
+    assert td.g_code.dtype == torch.uint8
+    lane, use_hi = sg.unpack_code(td.g_code)
+    np.testing.assert_array_equal(lane.numpy(), np.asarray(jd.g_lane))
+    np.testing.assert_array_equal(use_hi.numpy(),
+                                  np.asarray(jd.g_hi).astype(np.int64))
     np.testing.assert_array_equal(td.txp_offsets.numpy(),
                                   np.asarray(jd.txp_offsets))
     np.testing.assert_array_equal(td.w_csc.numpy(), jdbg["w_csc"])

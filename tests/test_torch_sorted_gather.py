@@ -5,6 +5,11 @@ The same seeded NumPy inputs go through `gather_pallas.sorted_gather`
 which is what the port runs for CPU tensors and what the CUDA kernel is
 held against on the card.
 
+The port's plan carries one byte an element (`code = lane | use_hi << 7`)
+and reads the table flat, `[n]` or `[B, n]`, with no copy padded to
+`S*128`: the tables here have lengths that are not multiples of 128, as
+the EM's `T + 1` is not.
+
 Tolerances: an f32 table must come out bit for bit (the kernel moves
 values, it does no arithmetic on them). For an f64 table the Pallas
 kernel returns f32 (its delivery runs on f32 one-hot products) while the
@@ -30,6 +35,7 @@ CASES = [
     (2, 129, 700),       # two table rows
     (3, 40000, 2000),    # very sparse: many one-element rows
     (4, 300, 1),
+    (5, 1024, 3000),     # a multiple of 128: no slack after the last row
 ]
 
 
@@ -55,12 +61,15 @@ def test_plan_build_equals_jax(seed, table_size, n_idx):
     assert (tp.n_rows, tp.table_rows, tp.out_len) == (
         jp.n_rows, jp.table_rows, jp.out_len)
     np.testing.assert_array_equal(tp.base.numpy(), jp.base)
-    np.testing.assert_array_equal(tp.lane.numpy(), np.asarray(jp.lane))
-    np.testing.assert_array_equal(
-        tp.use_hi.numpy().astype(bool), np.asarray(jp.use_hi))
+    lane, use_hi = tg.unpack_code(tp.code)
+    np.testing.assert_array_equal(lane.numpy(), np.asarray(jp.lane))
+    np.testing.assert_array_equal(use_hi.numpy().astype(bool),
+                                  np.asarray(jp.use_hi))
     np.testing.assert_array_equal(tp.src_pos, jp.src_pos)
-    assert tp.base.dtype == torch.int32 and tp.lane.dtype == torch.int32
-    assert tp.use_hi.dtype == torch.uint8
+    assert tp.base.dtype == torch.int32 and tp.code.dtype == torch.uint8
+    assert tuple(tp.code.shape) == (tp.n_rows, 128)
+    # the JAX plan carried across packs to the same codes
+    assert torch.equal(jax_plan_to_port(jp).code, tp.code)
 
 
 @pytest.mark.parametrize("seed,table_size,n_idx", CASES)
@@ -109,20 +118,60 @@ def test_replicate_axis(seed, table_size, n_idx):
         assert torch.equal(got[b], tg.sorted_gather(tables[b], plan))
 
 
-def test_pad_rows_and_out_of_range_rows_give_zero():
-    # base = -2 (pad row) and base + use_hi == S (past the table) are 0
+def codes(lane, use_hi):
+    return torch.from_numpy(tg.pack_code(lane, use_hi))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("batch", [None, 2])
+def test_pad_rows_and_out_of_range_rows_give_zero(dtype, batch):
+    # base = -2 (pad row), base + use_hi == S (past the table) and
+    # base = -1 with use_hi = 0 (row -1) are 0; base = -1 keeps its
+    # elements in row 0
     S = 8
-    table2d = torch.arange(1, S * 128 + 1, dtype=torch.float32).reshape(S, 128)
-    base = torch.tensor([-2, S - 1, 0], dtype=torch.int32)
-    lane = torch.zeros((3, 128), dtype=torch.int32)
+    n = S * 128
+    shape = (n,) if batch is None else (batch, n)
+    table = torch.arange(1, n * (batch or 1) + 1, dtype=dtype).reshape(shape)
+    base = torch.tensor([-2, S - 1, 0, -1], dtype=torch.int32)
+    lane = np.zeros((4, 128), dtype=np.int64)
     lane[:, 1] = 5
-    use_hi = torch.zeros((3, 128), dtype=torch.uint8)
+    use_hi = np.zeros((4, 128), dtype=np.uint8)
     use_hi[1, 1] = 1  # row S: outside
     use_hi[2, 1] = 1
-    out = tg.gather_rows(table2d, base, lane, use_hi)
-    assert not out[0].any()
-    assert out[1, 0] == table2d[S - 1, 0] and out[1, 1] == 0
-    assert out[2, 0] == table2d[0, 0] and out[2, 1] == table2d[1, 5]
+    use_hi[3, 1:] = 1  # row 0; element 0 stays in row -1
+    out = tg.gather_rows(table, base, codes(lane, use_hi), S)
+    assert out.shape == (*shape[:-1], 4, 128) and out.dtype == dtype
+    t2d = table.reshape(*shape[:-1], S, 128)
+    assert not out[..., 0, :].any()
+    assert torch.equal(out[..., 1, 0], t2d[..., S - 1, 0])
+    assert not out[..., 1, 1].any()
+    assert torch.equal(out[..., 2, 0], t2d[..., 0, 0])
+    assert torch.equal(out[..., 2, 1], t2d[..., 1, 5])
+    assert not out[..., 3, 0].any()
+    assert torch.equal(out[..., 3, 1], t2d[..., 0, 5])
+    assert torch.equal(out[..., 3, 2:], t2d[..., 0, :1].expand_as(
+        out[..., 3, 2:]))
+
+
+@pytest.mark.parametrize("n", [1000, 1025, 1151])
+def test_index_at_or_past_the_table_length_gives_zero(n):
+    # S = 16 rows of 128 hold n < S*128 entries; the last real row's
+    # elements at or past n read 0, as they do from the JAX package's
+    # zero-padded [S, 128] table
+    S = 16
+    table = torch.from_numpy(np.random.default_rng(n).normal(size=n))
+    last = (n - 1) // 128
+    base = torch.tensor([last, last - 1], dtype=torch.int32)
+    lane = np.tile(np.arange(128), (2, 1))
+    use_hi = np.zeros((2, 128), dtype=np.uint8)
+    use_hi[1] = 1
+    out = tg.gather_rows(table, base, codes(lane, use_hi), S)
+    padded = torch.nn.functional.pad(table, (0, S * 128 - n))
+    for r in range(2):
+        idx = last * 128 + torch.arange(128)
+        assert torch.equal(out[r], padded[idx])
+        assert not out[r][idx >= n].any()
+        assert torch.equal(out[r][idx < n], table[idx[idx < n]])
 
 
 def test_empty_index():
@@ -140,9 +189,24 @@ def test_table_larger_than_plan_raises():
 
 def test_cuda_wrapper_refuses_cpu_tensors():
     plan = tg.SortedGatherPlan.build(np.arange(10), 100, device="cpu")
-    t2d = tg.table_view(torch.zeros(100), plan.table_rows)
     with pytest.raises(ValueError, match="CUDA"):
-        tg.gather_rows_cuda(t2d, plan.base, plan.lane, plan.use_hi)
+        tg.gather_rows_cuda(torch.zeros(100), plan.base, plan.code,
+                            plan.table_rows)
+
+
+@pytest.mark.parametrize("fn", ["gather_rows", "gather_rows_reference"])
+@pytest.mark.parametrize("case", ["int32 lane", "table past S*128"])
+def test_wrapper_refuses(fn, case):
+    plan = tg.SortedGatherPlan.build(np.arange(10), 100, device="cpu")
+    table, code = torch.zeros(100), plan.code
+    if case == "int32 lane":  # the old plan's lane is not a code
+        code = tg.unpack_code(plan.code)[0].int()
+        err, match = TypeError, "uint8"
+    else:
+        table = torch.zeros(plan.table_rows * 128 + 1)
+        err, match = ValueError, "does not fit"
+    with pytest.raises(err, match=match):
+        getattr(tg, fn)(table, plan.base, code, plan.table_rows)
 
 
 @pytest.mark.cuda
@@ -165,6 +229,13 @@ def test_kernel_bit_equal_to_plain_on_card(dtype, batch):
     with pytest.raises(TypeError):
         tg.sorted_gather(table.half(), plan)
     with pytest.raises(ValueError):
-        tg.gather_rows_cuda(
-            tg.table_view(table, plan.table_rows), plan.base,
-            plan.lane.t().contiguous().t(), plan.use_hi)
+        tg.gather_rows_cuda(table, plan.base, plan.code.t().contiguous().t(),
+                            plan.table_rows)
+    with pytest.raises(TypeError):  # an int32 lane is not a code
+        tg.gather_rows_cuda(table, plan.base,
+                            tg.unpack_code(plan.code)[0].int(),
+                            plan.table_rows)
+    with pytest.raises(ValueError, match="does not fit"):
+        tg.gather_rows_cuda(torch.nn.functional.pad(
+            table, (0, plan.table_rows * 128 + 1 - 50_000)), plan.base,
+            plan.code, plan.table_rows)
