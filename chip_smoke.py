@@ -98,7 +98,18 @@ JSON object per phase goes to standard output:
   covmodel_device_vs_host  the first CLI run's BAM packed again: the device
                  coverage model against the native host pass on that store
                  (rtol 1e-12), with both times
-  sharded        the read-sharded and multi-process EMs: (a) the bench
+  cli_profile    the CLI's `--profile-dir` (a torch.profiler trace of the
+                 whole run) on cli_e2e's two BAMs: the 1.7 GB one at the
+                 defaults (auto -> v4, on run (c)'s plan cache) and the
+                 smaller one with `--em-impl pallas`; outputs byte-equal
+                 to the unprofiled twins, each hand-written kernel's
+                 events in the trace as many as its launch counter
+                 counted (one more run where they differ: both reported,
+                 the phase fails if the second differs too), the names the
+                 trace gives them, trace size, wall against the twin's,
+                 and the card's busy share (kernels, and every device
+                 activity) over the profiled span and over the EM's
+  sharded       the read-sharded and multi-process EMs: (a) the bench
                  store through `perform_inference_and_write_output` with
                  `--em-impl v4 --num-shards 2` and 8 bootstrap replicates
                  (one batch), then `--num-shards 4` (the point EM), every
@@ -197,8 +208,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import io
+import gzip
 import hashlib
+import io
 import json
 import logging
 import os
@@ -2270,6 +2282,152 @@ def phase_cli_e2e(R, T, device, tmp: Path, capture):
     return res, {k: launched[k] + launched2[k] for k in KERNELS}
 
 
+# the hand-written kernels by their `__global__` names, as a trace shows
+# them, under the launch counter that counts them (a replicate arm's
+# launches are also those of its kernel)
+TRACE_NAMES = {
+    "sorted_gather": ("sorted_gather_kernel",),
+    "tile_permute": ("tile_permute_kernel",),
+    "route_stage": ("route_stage_shared_kernel", "route_stage_gather_kernel"),
+    "route_middle": ("route_middle_kernel",),
+    "row_sums": ("row_sums_kernel",),
+}
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def read_trace(directory: Path) -> tuple:
+    """The one trace a CLI run left in `directory`: (path, its events)."""
+    found = sorted(directory.glob("*.pt.trace.json.gz"))
+    assert len(found) == 1, found
+    with gzip.open(found[0], "rt") as fh:
+        return found[0], json.load(fh)["traceEvents"]
+
+
+def launch_counter(event) -> Optional[str]:
+    """The launch counter of a trace event's hand-written kernel, or None
+    where the event is no such kernel."""
+    if event.get("cat") == "kernel":
+        for key, globals_ in TRACE_NAMES.items():
+            if any(g in event["name"] for g in globals_):
+                return key
+    return None
+
+
+def trace_kernel_counts(events) -> tuple:
+    """Each launch counter's events in a trace, and the names under which
+    the trace shows the hand-written kernels."""
+    counts, names = dict.fromkeys(TRACE_NAMES, 0), set()
+    for e in events:
+        key = launch_counter(e)
+        if key is not None:
+            counts[key] += 1
+            names.add(e["name"])
+    return counts, sorted(names)
+
+
+def union_us(intervals, lo: float, hi: float) -> float:
+    """Length of the union of `(start, end)` intervals within `[lo, hi]`."""
+    total, reach = 0.0, lo
+    for a, b in sorted(intervals):
+        a, b = max(a, reach), min(b, hi)
+        if b > a:
+            total += b - a
+            reach = b
+    return total
+
+
+def busy_shares(events) -> dict:
+    """The card's busy share of a trace: the union of its kernels' intervals
+    (and of every device activity: kernels, copies, fills) over the
+    profiled span (the profiler's own `Trace` event), and the kernels' over
+    the EM's span, from the first hand-written kernel's start to the last
+    one's end."""
+    xs = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    span = [e for e in xs if e.get("cat") == "Trace"]
+    lo, hi = ((span[0]["ts"], span[0]["ts"] + span[0]["dur"]) if span else
+              (min(e["ts"] for e in xs), max(e["ts"] + e["dur"] for e in xs)))
+    kernels = [(e["ts"], e["ts"] + e["dur"]) for e in xs
+               if e.get("cat") == "kernel"]
+    device = [(e["ts"], e["ts"] + e["dur"]) for e in xs
+              if e.get("cat") in DEVICE_CATS]
+    ours = [(e["ts"], e["ts"] + e["dur"]) for e in xs
+            if launch_counter(e) is not None]
+    out = dict(span_s=(hi - lo) / 1e6, kernels=len(kernels),
+               kernel_busy_share=union_us(kernels, lo, hi) / (hi - lo),
+               device_busy_share=union_us(device, lo, hi) / (hi - lo))
+    if ours:
+        a, b = min(s for s, _ in ours), max(e for _, e in ours)
+        out.update(em_span_s=(b - a) / 1e6,
+                   em_kernel_busy_share=union_us(kernels, a, b) / (b - a))
+    return out
+
+
+def phase_cli_profile(device, tmp: Path, capture, cli: dict) -> tuple:
+    """The CLI with `--profile-dir` on cli_e2e's two BAMs: the 1.7 GB BAM
+    at the defaults (auto -> v4) on the plan cache of cli_e2e's run (c),
+    and the smaller one with `--em-impl pallas`. Each run's outputs must
+    be the bytes of its unprofiled twin from cli_e2e, and each
+    hand-written kernel's events in its trace as many as the wrapper's
+    launch counter counted; on a mismatch the run is made once more and
+    both attempts are reported. Returns (the phase's line, launches per
+    kernel in the phase)."""
+    t_phase = time.time()
+    runs, launched, failed = {}, dict.fromkeys(KERNELS, 0), []
+    for tag, bam, extra, twin, twin_wall, env in (
+            ("v4", tmp / "e2e.bam", [], "cli_prefetch",
+             cli["a8_runs"]["prefetch"]["wall_s"],
+             dict(OARFISH_PLAN_CACHE_DIR=str(tmp / "plans_b"),
+                  OARFISH_PHASE_TIMING="1")),
+            ("pallas", tmp / "small.bam", ["--em-impl", "pallas"],
+             "cli_pallas", cli["pallas_run"]["wall_s"], {})):
+        want_files = {ext: file_digest(str(tmp / twin) + ext)
+                      for ext in A8_OUTPUTS}
+        attempts = []
+        for attempt in range(2):
+            out, trace_dir = (tmp / f"cli_profile_{tag}",
+                              tmp / f"trace_{tag}_{attempt}")
+            hits = capture.prefetch_hits
+            with environment(**env):
+                _, _, kept, _, (impl, iters, em_s), run_launched, wall = (
+                    run_cli(bam, out, [*extra, "--profile-dir",
+                                       str(trace_dir)], device, capture))
+            assert impl == tag, (impl, tag)
+            files = {ext: file_digest(str(out) + ext) for ext in A8_OUTPUTS}
+            assert files == want_files, (
+                f"profiled {tag} run's outputs differ from {twin}'s")
+            for k, n in run_launched.items():
+                launched[k] += n
+            t0 = time.time()
+            path, events = read_trace(trace_dir)
+            counts, names = trace_kernel_counts(events)
+            want = {k: run_launched[k] for k in TRACE_NAMES}
+            attempts.append(dict(
+                wall_s=round(wall, 2), twin_wall_s=twin_wall,
+                iterations=iters, em_s=em_s, reads_kept=kept,
+                prefetch_hit=capture.prefetch_hits > hits,
+                trace_mb=round(path.stat().st_size / 2**20, 2),
+                trace_events=len(events), parse_s=round(time.time() - t0, 2),
+                launches=want, trace_counts=counts,
+                counts_equal=counts == want, kernel_names=names,
+                **busy_shares(events)))
+            del events
+            shutil.rmtree(trace_dir)
+            if counts == want:
+                break
+        for ext in A8_OUTPUTS:
+            Path(str(out) + ext).unlink()
+        runs[tag] = dict(attempts=attempts, outputs_byte_equal=True)
+        if not attempts[-1]["counts_equal"]:
+            failed.append(tag)
+    emit("cli_profile", **runs, launches=launched,
+         phase_s=round(time.time() - t_phase, 1))
+    if failed:
+        raise AssertionError(
+            f"the trace's kernel counts differ from the launch counters "
+            f"twice: {failed}")
+    return runs, launched
+
+
 @contextlib.contextmanager
 def plain_v4_kernels():
     """Run the v4 m-step's tile permutes, route stages, fused middle and row
@@ -3251,6 +3409,7 @@ def main(argv=None) -> int:
         v3, launches_v3 = phase_em_v3(csr, R, T, device, tmp, capture,
                                       counts_em)
         cli, launches_cli = phase_cli_e2e(R, T, device, tmp, capture)
+        _, launches_profile = phase_cli_profile(device, tmp, capture, cli)
         _, launches_sharded = phase_sharded(
             csr, R, T, device, tmp, capture, counts_em["v4"],
             tmp / "e2e.bam")
@@ -3265,7 +3424,8 @@ def main(argv=None) -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
     by_path = {"em_full_width": launches_em, "em_v3": launches_v3,
-               "cli_e2e": launches_cli, "sharded": launches_sharded,
+               "cli_e2e": launches_cli, "cli_profile": launches_profile,
+               "sharded": launches_sharded,
                "bench": launches_bench,
                "raw_reads": launches_raw, "genome_reads": launches_greads,
                "genome_bam": launches_gbam}

@@ -3,12 +3,14 @@
 Counterpart of the JAX package's `cli.py`: the reference's flag surface
 (`src/prog_opts.rs:250-566`) and mode dispatch (`src/main.rs:319-485`)
 with the same flag names, defaults, filter-group overlay semantics and
-input-mode exclusivity rules, plus `--device`. Every input mode is
-ported: transcriptome-BAM bulk mode, single-cell mode (`--single-cell`),
-raw reads against a transcriptome (`--reads` with `--annotated` /
-`--novel` / `--index`), index building alone (`--only-index`), raw reads
-against a genome (`--reads --genome --annotation`) and genome BAMs
-(`--genome-alignments --annotation`), each on one device, over
+input-mode exclusivity rules, plus `--device`; `--profile-dir` traces
+the run with `torch.profiler` where the JAX CLI uses `jax.profiler`.
+Every input mode is ported: transcriptome-BAM bulk mode, single-cell
+mode (`--single-cell`), raw reads against a transcriptome (`--reads`
+with `--annotated` / `--novel` / `--index`), index building alone
+(`--only-index`), raw reads against a genome (`--reads --genome
+--annotation`) and genome BAMs (`--genome-alignments --annotation`),
+each on one device, over
 `--num-shards` read shards, or over `--num-processes` processes joined
 by a gloo process group (`resolve_processes`, with the JAX package's
 environment fallbacks).
@@ -178,6 +180,8 @@ def build_parser() -> argparse.ArgumentParser:
         help="multi-process: this process's id, 0-based",
     )
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--profile-dir", type=Path, default=None,
+                   help="write a torch.profiler trace of the run here")
     return p
 
 
@@ -368,9 +372,44 @@ def main(argv=None) -> int:
 
     resolve_processes(args)
     try:
-        return run_mode(args, opts, log)
+        if ns.profile_dir is None:
+            return run_mode(args, opts, log)
+        # trace the whole run, as the JAX CLI's `jax.profiler.trace` does
+        with profiled(ns.profile_dir, args):
+            return run_mode(args, opts, log)
     finally:
         shutdown_distributed()
+
+
+def profile_activities(args: Args) -> list:
+    """What `--profile-dir` traces: the host always, and the card where the
+    run asks for one (`--device` other than cpu, the default included) and
+    one is present. It decides nothing about the device: a run that asks
+    for a missing card still raises in `resolve_device`."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from .device import DEFAULT_DEVICE
+
+    activities = [ProfilerActivity.CPU]
+    on_card = str(args.device or DEFAULT_DEVICE).split(":")[0] != "cpu"
+    if on_card and not args.only_index and torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    return activities
+
+
+def profiled(profile_dir: Path, args: Args):
+    """`torch.profiler` over the whole run, no schedule: the trace is
+    written when the run ends or raises, as a gzipped Chrome trace
+    `<host>_<pid>.<ns>.pt.trace.json.gz` in `profile_dir`, so the processes
+    of a `--num-processes` run each write their own file. Perfetto,
+    `chrome://tracing` or TensorBoard's PyTorch profiler plugin open it."""
+    from torch.profiler import profile, tensorboard_trace_handler
+
+    return profile(
+        activities=profile_activities(args),
+        on_trace_ready=tensorboard_trace_handler(str(profile_dir),
+                                                 use_gzip=True))
 
 
 def run_mode(args: Args, opts, log) -> int:
