@@ -9,8 +9,8 @@ PyTorch version on the card, and drives the port's main paths (bulk
 quantification of a transcriptome BAM, on one device, over read shards
 and over two processes; single-cell quantification of a CB-collated BAM;
 raw reads against a transcriptome and against a genome; a genome BAM;
-the port's benchmark) at full width through the entry points a user
-calls. One
+the port's benchmark and its mode lines) at full width through the entry
+points a user calls. One
 JSON object per phase goes to standard output:
 
   env            card name and power limit, torch/CUDA versions, which
@@ -137,9 +137,24 @@ JSON object per phase goes to standard output:
                  `--e2e --quick --reps 1`: the three JSON lines, exact
                  launches, the mass, each `ms_per_iter` between its
                  m-step alone and 5 times em_full_width's ms an iteration
+  mode_bench     the JAX system's three mode benchmarks through the same
+                 entry point: `--e2e --boots 100 --reps 1` on cli_e2e's
+                 BAM (100 replicates, 12 batches of 8 and one of 4;
+                 exact launches over both runs, each replicate finite and
+                 within 1e-5 of the reads kept, replicates 0 and 96
+                 bit-equal to single runs with their multiplicities, one
+                 batch m-step of 4 bit-equal through the kernels and
+                 their plain versions), `--sc` (100,000 cells, dense, no
+                 hand-written kernel; its BAM stays for single_cell) and
+                 `--genome` (80,000 reads, 300 genes; the CLI in a child
+                 process on the card, then the same command in this
+                 process with exact K1 launches, each bit-equal to the
+                 plain version, and outputs byte-equal to the child's):
+                 the three JSON lines and the phase's seconds
   single_cell    a CB-collated BAM at `scripts/sc_e2e_bench.py`'s scale
                  (100,000 cells x 50 reads, T=30,000, ~2 alignments a
-                 read) through the CLI with `--single-cell` on the card
+                 read; mode_bench's, `bench_modes.build_sc_bam`) through
+                 the CLI with `--single-cell` on the card
                  (auto -> dense), then with OARFISH_SC_IMPL=segsum: wall
                  time, the sc.parse / sc.em / sc.write phases, cells/s,
                  buckets with their cells and sub-batches, peak device
@@ -164,8 +179,8 @@ JSON object per phase goes to standard output:
                  launches; the mass within 1e-5 of the reads kept; each
                  sorted gather of the run bit-equal to its plain version
                  on the run's own inputs
-  genome_reads   a genome at `scripts/genome_gencode_bench.py`'s defaults
-                 (125,000 two-isoform genes, 25 chromosomes, ~0.9 Gbp;
+  genome_reads   a fifth of `scripts/genome_gencode_bench.py`'s genome
+                 (25,000 two-isoform genes, 5 chromosomes, ~0.18 Gbp;
                  80,000 reads) through `--reads --genome --annotation`:
                  from the FASTA with `--index-out`, then from that index
                  (outputs byte-equal), then from that index with
@@ -229,13 +244,12 @@ import numpy as np
 import torch
 
 from oarfish_tpu_torch import bench as bench_mod
+from oarfish_tpu_torch import bench_modes
 from oarfish_tpu_torch.bench import (
     BGZF_EOF,
     build_e2e_bam,
     compress_payload,
     make_csr,
-    put_i32,
-    put_u16,
 )
 from oarfish_tpu_torch.cli import build_parser, main as cli_main, to_args
 from oarfish_tpu_torch.config import Args, resolve_filters
@@ -252,6 +266,7 @@ from oarfish_tpu_torch.kernels import build as kernel_build
 from oarfish_tpu_torch.models import coverage as covmodel_host
 from oarfish_tpu_torch.models import coverage_torch as covmodel_device
 from oarfish_tpu_torch.ops import balance, em_dense, em_fast, em_v3, em_v4
+from oarfish_tpu_torch.ops import bootstrap as bootstrap_ops
 from oarfish_tpu_torch.ops import permute_plan, static_permute
 from oarfish_tpu_torch.ops import route_middle as rm
 from oarfish_tpu_torch.ops import route_stage as rs
@@ -287,13 +302,14 @@ SC_CELLS, SC_READS_PER_CELL, SC_TXPS = 100_000, 50, 30_000
 # other orders and read 2.4e-8 on this BAM; the limit sits between that
 # and a dense run with `prev` rounded to bf16 (a control run of the phase)
 SC_DENSE_VS_SEGSUM = 1e-6
-BCLEN = 16  # barcode length
 # the raw-read phase: `scripts/rawreads_gencode_bench.py`'s defaults
 RR_TXPS, RR_READS, RR_EXPRESSED = 250_000, 80_000, 10_000
-# the genome phases: `scripts/genome_gencode_bench.py`'s defaults, the
-# read count of the reference's human-scale claim; the gene model (A =
-# exons 1+2+3, B = exons 1+3) is the bench's
-G_GENES, G_CHROMS, G_READS, G_SAMPLE_GENES = 125_000, 25, 80_000, 5_000
+# the genome phases: the read count of the reference's human-scale claim
+# on a fifth of `scripts/genome_gencode_bench.py`'s genome (its 125,000
+# genes over 25 chromosomes, cut to the time limit once `mode_bench`
+# joined; chromosomes of the same size); the gene model (A = exons 1+2+3,
+# B = exons 1+3) is the bench's
+G_GENES, G_CHROMS, G_READS, G_SAMPLE_GENES = 25_000, 5, 80_000, 5_000
 E1, E2, E3, GAP = 1200, 260, 1200, 1500
 GENE_SPAN = E1 + E2 + E3 + 3 * GAP
 DNA = np.frombuffer(b"ACGT", np.uint8)
@@ -361,123 +377,6 @@ def emit(phase: str, **fields) -> None:
     """One phase's line; `at_s` is the script's seconds when it ends."""
     print(json.dumps({"phase": phase, **fields,
                       "at_s": round(time.time() - T_START, 1)}), flush=True)
-
-
-# ---------------------------------------------------------------------------
-# workloads
-# ---------------------------------------------------------------------------
-
-def build_sc_bam(path, C, reads_per_cell, T, seed=0, mean_k=2,
-                 chunk_reads=100_000, threads=8):
-    """CB-collated synthetic BAM: C cells x ~reads_per_cell reads,
-    ~mean_k same-span alignments per read, zipf transcript popularity,
-    16-base barcodes derived from the cell index. Reads are emitted in
-    cell order, so the file is CB-collated as single-cell mode requires
-    (`alignment_parser.rs:170-299` semantics). Returns the number of
-    alignment records."""
-    rng = np.random.default_rng(seed)
-    R = C * reads_per_cell
-    t_len = rng.integers(400, 4000, size=T).astype(np.int64)
-    text = "@HD\tVN:1.6\tSO:unsorted\n@PG\tID:minimap2\tPN:minimap2\n"
-    hdr = bytearray()
-    hdr += b"BAM\x01"
-    tb = text.encode()
-    hdr += struct.pack("<i", len(tb)) + tb
-    hdr += struct.pack("<i", T)
-    for i in range(T):
-        nb = (b"t%06d" % i) + b"\x00"
-        hdr += struct.pack("<i", len(nb)) + nb
-        hdr += struct.pack("<i", int(t_len[i]))
-
-    n_pool = 8 << 20
-    pool_bytes = (
-        rng.integers(0, 4, size=n_pool) * 16
-        + rng.integers(0, 4, size=n_pool)
-    ).astype(np.uint8)
-    filler = None
-
-    NAME_LEN = 11
-    CIG = 12
-    FIXED = 4 + 32 + NAME_LEN + CIG
-    TAGS = 7 + 3 + BCLEN + 1  # AS:i:<i32> + CB:Z:<16>NUL
-    CB_OFF = 7  # CB tag starts after AS
-
-    base_lut = np.frombuffer(b"ACGT", dtype=np.uint8)
-
-    total_alns = 0
-    with open(path, "wb") as fh, ThreadPoolExecutor(threads) as tpool:
-        harr = np.frombuffer(bytes(hdr), dtype=np.uint8)
-        compress_payload(fh, harr, tpool)
-        for lo in range(0, R, chunk_reads):
-            hi = min(lo + chunk_reads, R)
-            n_r = hi - lo
-            sizes = rng.geometric(1.0 / mean_k, size=n_r).clip(1, 20)
-            A = int(sizes.sum())
-            total_alns += A
-            read_idx = np.repeat(np.arange(lo, hi, dtype=np.int64), sizes)
-            cell_idx = read_idx // reads_per_cell
-            first = np.ones(A, dtype=bool)
-            first[1:] = read_idx[1:] != read_idx[:-1]
-            tid = (rng.zipf(1.3, size=A) % T).astype(np.int64)
-            span_r = rng.integers(200, 380, size=n_r)
-            span = np.repeat(span_r, sizes)
-            tl = t_len[tid]
-            pos = (rng.random(A) * np.maximum(tl - span, 1)).astype(
-                np.int64
-            )
-            score = span - rng.integers(0, 10, size=A)
-            l_seq = np.where(first, span + 21, 0).astype(np.int64)
-            seq_bytes = (l_seq + 1) // 2 + l_seq
-            rec_len = FIXED + seq_bytes + TAGS
-            offs = np.zeros(A + 1, dtype=np.int64)
-            np.cumsum(rec_len, out=offs[1:])
-            need = int(offs[-1])
-            if filler is None or len(filler) < need:
-                filler = np.tile(pool_bytes, need // n_pool + 1)
-            buf = filler[:need]
-            o = offs[:-1]
-            put_i32(buf, o, rec_len - 4)
-            put_i32(buf, o + 4, tid)
-            put_i32(buf, o + 8, pos)
-            buf[o + 12] = NAME_LEN
-            buf[o + 13] = 60
-            put_u16(buf, o + 14, np.zeros(A, np.int64))
-            put_u16(buf, o + 16, np.full(A, 3, np.int64))
-            put_u16(buf, o + 18, np.where(first, 0, 256))
-            put_i32(buf, o + 20, l_seq)
-            put_i32(buf, o + 24, np.full(A, -1, np.int64))
-            put_i32(buf, o + 28, np.full(A, -1, np.int64))
-            put_i32(buf, o + 32, np.zeros(A, np.int64))
-            buf[o + 36] = ord("r")
-            for k in range(9):
-                buf[o + 37 + k] = (
-                    (read_idx // 10 ** (8 - k)) % 10 + ord("0")
-                )
-            put_i32(buf, o + 47, np.full(A, (12 << 4) | 4, np.int64))
-            put_i32(buf, o + 51, (span.astype(np.int64) << 4) | 0)
-            put_i32(buf, o + 55, np.full(A, (9 << 4) | 4, np.int64))
-            to = offs[1:] - TAGS
-            buf[to] = ord("A")
-            buf[to + 1] = ord("S")
-            buf[to + 2] = ord("i")
-            put_i32(buf, to + 3, score)
-            cb = to + CB_OFF
-            buf[cb] = ord("C")
-            buf[cb + 1] = ord("B")
-            buf[cb + 2] = ord("Z")
-            # 16 base-4 digits of the cell index, MSB first
-            for k in range(BCLEN):
-                dig = (cell_idx >> (2 * (BCLEN - 1 - k))) & 3
-                buf[cb + 3 + k] = base_lut[dig]
-            buf[cb + 3 + BCLEN] = 0
-            compress_payload(fh, buf, tpool)
-        fh.write(BGZF_EOF)
-    return total_alns
-
-
-# ---------------------------------------------------------------------------
-# helpers
-# ---------------------------------------------------------------------------
 
 
 # ---------------------------------------------------------------------------
@@ -2242,7 +2141,7 @@ def phase_cli_e2e(R, T, device, tmp: Path, capture):
         abs(first["counts"].sum() - first["kept"]) / first["kept"])
     phase_covmodel_device_vs_host(bam, first["argv"], first["kept"], device)
     # the BAM and its halves stay for the `sharded` phase, which removes
-    # them
+    # the halves, and the BAM for mode_bench, which removes it
 
     # an earlier path at a smaller size: `--em-impl pallas`, and the
     # sorted-gather kernel against its plain version on this BAM's own
@@ -2603,7 +2502,8 @@ def phase_sharded(csr, R, T, device, tmp: Path, capture, counts_v4,
     EM), all shards on this card; (b) two processes of the CLI on `bam`
     against one, (c) two processes each packing half of its reads.
     Returns (the phase's line, launches per kernel of (a)). `bam` and its
-    halves (`e2e_halves`) are cli_e2e's, removed here."""
+    halves (`e2e_halves`) are cli_e2e's; the halves are removed here, `bam`
+    by mode_bench."""
     store, names, lens, coverage = bench_store(csr, R, T)
     runs, launched = {}, dict.fromkeys(KERNELS, 0)
     with recording_sharded_builds() as built:
@@ -2740,7 +2640,7 @@ def phase_sharded(csr, R, T, device, tmp: Path, capture, counts_v4,
         procs[tag] = res
         for f in tmp.glob(f"mp_{tag}*"):
             f.unlink()
-    for f in (*halves, bam):
+    for f in halves:
         f.unlink()
     out = dict(R=R, T=T, dtype="float32", **runs, m_steps_vs_plain=m_steps,
                launches=launched, one_process=dict(
@@ -2836,6 +2736,202 @@ def phase_bench(R, T, device, tmp: Path, em_full) -> tuple:
     return out, launched
 
 
+# `bench --e2e --boots`: the JAX system's 100 replicates, 12 batches of
+# 8 and a last one of 4; the replicates held bit for bit against their
+# single runs: the first, and the first of the short batch
+MODE_BOOTS = 100
+MODE_SINGLES = (0, 96)
+
+
+@contextlib.contextmanager
+def recording_v4_replicates():
+    """Keep the device state and read order of the last `EmV4Data.build`
+    and the multiplicities and start of the last `run_replicates` made
+    while the block runs."""
+    kept = {}
+    build, replicates = em_v4.EmV4Data.build, bootstrap_ops.run_replicates
+
+    def record_build(*args, **kwargs):
+        out = build(*args, **kwargs)
+        kept["data"], kept["order"] = out
+        return out
+
+    def record_replicates(run, mult, init, *args, **kwargs):
+        kept["mult"], kept["init"] = mult, init
+        return replicates(run, mult, init, *args, **kwargs)
+
+    em_v4.EmV4Data.build = staticmethod(record_build)
+    bootstrap_ops.run_replicates = record_replicates
+    try:
+        yield kept
+    finally:
+        em_v4.EmV4Data.build = staticmethod(build)
+        bootstrap_ops.run_replicates = replicates
+
+
+def boots_launches(run: dict, fused: bool) -> dict:
+    """Launches of one CLI run with replicates on v4: the point EM's
+    m-steps, then per batch of replicates as many batch m-steps as its
+    slowest replicate takes (one program, the arms' launches among them)."""
+    iters = run["bootstrap_iterations"]
+    batched = sum(max(iters[b:b + BOOT_BATCH]) + 1
+                  for b in range(0, len(iters), BOOT_BATCH))
+    return v4_launches(run["em_iters"] + 1 + batched, fused, batched)
+
+
+def phase_mode_bench(R, T, device, tmp: Path, capture, cli: dict) -> tuple:
+    """The JAX system's three mode benchmarks through the port's bench
+    entry point: (a) `--e2e --boots 100 --reps 1` on cli_e2e's BAM (not
+    built again): 100 replicates written, finite, each within 1e-5 of the
+    reads kept, exact launches over both runs, the multiplicities drawn
+    again on the host (equal, timed), replicates 0 and 96 (the short
+    batch's first) bit-equal to single `run_em_v4` runs with their
+    multiplicities, one batch m-step of 4 bit-equal through the kernels
+    and their plain versions; (b) `--sc` at the JAX script's defaults
+    (dense on the card, no hand-written kernel; its BAM stays for the
+    single_cell phase); (c) `--genome` at the JAX script's defaults, the
+    CLI in a child process on the card, then the same command in this
+    process: exact launches, every sorted gather bit-equal to its plain
+    version, `.quant` and `.ambig_info.tsv` byte-equal to the child's.
+    Returns (the phase's line, launches per kernel of (a) and (c)'s second
+    run)."""
+    import pyarrow.parquet as pq
+
+    t_phase = time.time()
+    work = tmp / "mode_bench"
+    work.mkdir()
+    os.link(tmp / "e2e.bam", work / f"e2e_R{R}_T{T}_s0.bam")
+    (work / f"e2e_R{R}_T{T}_s0.json").write_text(json.dumps(
+        {"R": R, "T": T, "A_generated": cli["records"]}))
+    n_layout = len(capture.layout)
+    t0 = time.time()
+    with recording_v4_replicates() as kept:
+        line, _, launched = bench_main(
+            ["--e2e", "--boots", str(MODE_BOOTS), "--reps", "1",
+             "--reads", str(R), "--txps", str(T), "--work-dir", str(work)])
+    boots_s = time.time() - t0
+    assert line["metric"] == "e2e_100boot_wall_s", line["metric"]
+    assert line["replicates_written"] == MODE_BOOTS
+    runs = [line["cold"], line["warm"]]
+    assert all(r["impl"] == "v4" for r in runs), [r["impl"] for r in runs]
+    layouts = capture.layout[n_layout:]
+    assert len(layouts) == 2, layouts
+    want = dict.fromkeys(KERNELS, 0)
+    for run, (_, fused) in zip(runs, layouts):
+        assert len(run["bootstrap_iterations"]) == MODE_BOOTS
+        for k, n in boots_launches(run, fused).items():
+            want[k] += n
+    assert launched == want, (launched, want)
+    data, mult, init = kept["data"], kept["mult"], kept["init"]
+    assert em_v4._batch_eligible(data), "the batches ran one by one"
+    meta = json.loads((work / "out.meta_info.json").read_text())
+    kept_reads = int(meta["discard_table"]["valid_best_aln"])
+    reps = pq.read_table(str(work / "out.infreps.pq"))
+    reps = np.stack([np.asarray(reps[c]) for c in reps.column_names])
+    assert reps.shape == (MODE_BOOTS, T) and np.isfinite(reps).all()
+    rep_mass = float(np.abs(reps.sum(axis=1) - kept_reads).max() / kept_reads)
+    assert rep_mass < 1e-5, f"replicate mass off by {rep_mass}"
+    # the draw again on the host, out of the run: the same multiplicities
+    # from the run's seed, its seconds and bytes (inside `bootstrap_s`)
+    defaults = Args()
+    t0 = time.time()
+    drawn = sample_multiplicities(np.random.default_rng(defaults.seed),
+                                  MODE_BOOTS, kept_reads)
+    draw_s = time.time() - t0
+    t0 = time.time()
+    drawn = drawn[:, kept["order"]]
+    permute_s = time.time() - t0
+    assert np.array_equal(drawn, mult), "the draw differs from the run's"
+    draw = dict(draw_s=round(draw_s, 3), permute_s=round(permute_s, 3),
+                gb=round(drawn.nbytes / 1e9, 3), equal_to_the_run=True)
+    del drawn
+    # launched after the main path's counts were read
+    singles = {}
+    for i in MODE_SINGLES:
+        t0 = time.time()
+        single, niter = em_v4.run_em_v4(
+            data, init, defaults.max_em_iter, defaults.convergence_thresh,
+            multiplicity=torch.as_tensor(mult[i], device=device).float())
+        single = single.double().cpu().numpy()
+        assert int(niter) == line["bootstrap_iterations"][i], (
+            i, int(niter), line["bootstrap_iterations"][i])
+        assert np.array_equal(reps[i], single), (
+            f"replicate {i} differs from its single run (L1/R = "
+            f"{float(np.abs(reps[i] - single).sum() / kept_reads)})")
+        singles[i] = dict(iterations=int(niter), bit_equal=True,
+                          single_s=round(time.time() - t0, 3))
+    # one batch m-step of the short batch's 4 replicates: the arms at B = 4
+    tail = mult[BOOT_BATCH * (MODE_BOOTS // BOOT_BATCH):]
+    m_b = torch.as_tensor(tail, device=device).float()
+    prev = torch.nn.functional.pad(uniform_init(data, torch.float32),
+                                   (0, data.t_space - T))
+    prev_b = prev.expand(len(tail), -1).contiguous()
+    arms0 = (rs.replicate_launch_count, rm.replicate_launch_count)
+    got = em_v4.make_m_step(data, m_b)(prev_b)
+    arms = (rs.replicate_launch_count - arms0[0],
+            rm.replicate_launch_count - arms0[1])
+    assert arms == (2, 1), arms
+    with plain_v4_kernels():
+        plain = em_v4.make_m_step(data, m_b)(prev_b)
+    arm_err = bit_equal("batch m-step of 4 replicates", got, plain)
+    # a batch m-step of the short batch and of the full batch before it:
+    # between CUDA events as a loop calls it, and queued back to back
+    step_ms = {}
+    for b, rows in ((len(tail), tail),
+                    (BOOT_BATCH, mult[-len(tail) - BOOT_BATCH:-len(tail)])):
+        m = torch.as_tensor(rows, device=device).float()
+        x = prev.expand(b, -1).contiguous()
+        step = em_v4.make_m_step(data, m)
+        step_ms[f"b{b}"] = dict(ms=time_ms(lambda: step(x), device),
+                                queued_ms=queued_ms(lambda: step(x), device))
+    del data, mult, init, kept, got, plain, prev_b, m_b, m, x, step
+    torch.cuda.empty_cache()
+    shutil.rmtree(work)
+    (tmp / "e2e.bam").unlink()
+    boots = dict(line=line, launches=launched, seconds=round(boots_s, 1),
+                 reads_kept=kept_reads, replicate_mass_rel_err=rep_mass,
+                 draw=draw, singles_vs_batch=singles,
+                 short_batch=dict(replicates=len(tail),
+                                  arm_launches=dict(route_stage=arms[0],
+                                                    route_middle=arms[1]),
+                                  bit_equal=True, max_abs_err=arm_err,
+                                  m_step_ms=step_ms))
+
+    # (b) the single-cell line: `auto` takes dense on the card
+    n_sc = len(capture.sc)
+    t0 = time.time()
+    sc_line, _, sc_launched = bench_main(["--sc", "--work-dir",
+                                          str(tmp / "sc")])
+    sc_s = time.time() - t0
+    assert sc_line["metric"] == "sc_e2e_cells_per_s"
+    assert not any(sc_launched.values()), sc_launched
+    assert sc_line["cells"] == SC_CELLS and sc_line["nnz"] > 0, sc_line
+    impls = {g[4] for p, g in capture.sc[n_sc:] if p is capture.SC_BUCKET}
+    assert impls == {"dense"}, impls
+
+    # (c) the genome line, then its command in this process
+    gdir = tmp / "genome_bench"
+    t0 = time.time()
+    g_line, _, g_launched = bench_main(["--genome", "--work-dir", str(gdir)])
+    assert g_line["metric"] == "genome_e2e_wall_s"
+    assert not any(g_launched.values()), g_launched  # the child's, not ours
+    assert g_line["truth_total"] == g_line["reads"]
+    twin, _, _ = run_mode(bench_modes.genome_argv(gdir, g_line["threads"]),
+                          gdir / "twin", device, capture)
+    assert twin["k1_launches"] > 0, twin
+    same = same_files(gdir / "out", gdir / "twin")
+    genome_s = time.time() - t0
+    shutil.rmtree(gdir)
+    out = dict(e2e_boots=boots,
+               sc=dict(line=sc_line, seconds=round(sc_s, 1)),
+               genome=dict(line=g_line, spearman=g_line["spearman"],
+                           in_process=twin, byte_equal_to_child=same,
+                           seconds=round(genome_s, 1)),
+               seconds=round(time.time() - t_phase, 1))
+    emit("mode_bench", **out)
+    return out, {k: launched[k] + twin["launches"][k] for k in KERNELS}
+
+
 def read_mtx(path: Path):
     """(rows, cols, values, (n_rows, n_cols)) of a MatrixMarket file the
     single-cell writer wrote, 0-based."""
@@ -2889,10 +2985,11 @@ def phase_single_cell(device, tmp: Path, capture) -> dict:
     two runs against each other; then control runs of dense with less
     precise products, which the limit must tell from a sound one. This path launches none of the hand-written
     kernels (its products are `torch.bmm`)."""
-    bam = tmp / "sc.bam"
-    t0 = time.time()
-    n_alns = build_sc_bam(bam, SC_CELLS, SC_READS_PER_CELL, SC_TXPS)
-    gen_s = time.time() - t0
+    # the BAM of `bench --sc` in mode_bench, built there (or here) once
+    work = tmp / "sc"
+    work.mkdir(exist_ok=True)
+    bam, n_alns, gen_s = bench_modes.ensure_sc_bam(
+        work, SC_CELLS, SC_READS_PER_CELL, SC_TXPS)
     runs, mats = {}, {}
     for impl, want_impl in (("auto", "dense"), ("segsum", "segsum")):
         out = tmp / f"sc_{impl}"
@@ -2975,7 +3072,7 @@ def phase_single_cell(device, tmp: Path, capture) -> dict:
         control_tf32_l1_over_R_vs_segsum=l1_tf32,
         control_bf16_prev_l1_over_R_vs_segsum=l1_bf16,
         dense_m_step_most_populous_bucket=dense_m_step(top, device))
-    bam.unlink()
+    shutil.rmtree(work)
     emit("single_cell", **res)
     return res
 
@@ -3414,6 +3511,7 @@ def main(argv=None) -> int:
             csr, R, T, device, tmp, capture, counts_em["v4"],
             tmp / "e2e.bam")
         _, launches_bench = phase_bench(R, T, device, tmp, em_full)
+        _, launches_mode = phase_mode_bench(R, T, device, tmp, capture, cli)
         phase_single_cell(device, tmp, capture)
         raw, launches_raw = phase_raw_reads(device, tmp, capture)
         (greads, gbam), (launches_greads, launches_gbam) = phase_genome(
@@ -3426,7 +3524,7 @@ def main(argv=None) -> int:
     by_path = {"em_full_width": launches_em, "em_v3": launches_v3,
                "cli_e2e": launches_cli, "cli_profile": launches_profile,
                "sharded": launches_sharded,
-               "bench": launches_bench,
+               "bench": launches_bench, "mode_bench": launches_mode,
                "raw_reads": launches_raw, "genome_reads": launches_greads,
                "genome_bam": launches_gbam}
     # the raw-read and genome runs end in the same tail: at their sizes it
@@ -3442,9 +3540,10 @@ def main(argv=None) -> int:
 
     def entry(name, measured, **extra):
         _, _, source, replaces = KERNELS[name]
-        # the CLI runs draw no bootstrap replicates: the arms are launched
-        # by the 8 replicates of `em_full_width`
-        paths = (launches_em,) if name in ARMS else (launches_em, launches_cli)
+        # the arms are launched by the 8 replicates of `em_full_width` and
+        # by the CLI's 100 of `mode_bench`
+        paths = ((launches_em, launches_mode) if name in ARMS
+                 else (launches_em, launches_cli))
         if any(path[name] == 0 for path in paths):
             raise AssertionError(f"a main path never launched {name}")
         return {

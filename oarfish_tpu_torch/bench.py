@@ -4,9 +4,12 @@ the wall time from a BAM to its `.quant`.
     python -m oarfish_tpu_torch.bench [--quick] [--device cpu]
     python -m oarfish_tpu_torch.bench --e2e [--quick] [--impl I] [--cov]
                                       [--reps N] [--work-dir D]
+    python -m oarfish_tpu_torch.bench --e2e --boots N | --sc | --genome
 
 Counterpart of `bench.py` and `scripts/e2e_bench.py`, which sit beside the
 JAX package at the root of the repository; this module imports neither.
+`--e2e --boots`, `--sc` and `--genome` are the JAX system's other three
+mode benchmarks (`bench_modes.py` says what each prints).
 
 The default mode builds `bench.py`'s CSR from the same seed (R = 2,000,000
 reads, T = 200,000 transcripts, geometric alignments a read with mean 3,
@@ -424,18 +427,21 @@ def ensure_bam(work_dir: Path, reads: int, txps: int, seed: int):
 
 class PhaseCapture(logging.Handler):
     """`quant/bulk.py`'s log lines of a run: the pack's timings, what
-    `auto` took, the route build's and the EM's seconds, the
-    iterations."""
+    `auto` took, the route build's and the EM's seconds, the iterations,
+    and the bootstrap replicates' seconds and iterations."""
 
     EM = re.compile(r"(\w+) EM on \S+ \(\w+\) converged after (\d+) "
                     r"iterations in ([0-9.]+)s")
     ROUTING = re.compile(r"(v[34]) routing built in ([0-9.]+)s")
     PACK = re.compile(r"^phase bulk\.pack (.*)$")
+    BOOT = re.compile(r"^(\d+) bootstrap replicates in ([0-9.]+)s, "
+                      r"iterations \[([0-9, ]*)\]")
 
     def __init__(self):
         super().__init__(level=logging.INFO)
         self.route_build_s = self.em_s = self.em_iters = self.impl = None
         self.pack = {}
+        self.boot = None
 
     def emit(self, record):
         msg = record.getMessage()
@@ -450,35 +456,47 @@ class PhaseCapture(logging.Handler):
         if m:
             self.impl = m.group(1)
             self.em_iters, self.em_s = int(m.group(2)), float(m.group(3))
+        m = self.BOOT.search(msg)
+        if m:
+            self.boot = (float(m.group(2)),
+                         [int(x) for x in m.group(3).split(",")])
 
 
-def run_once(bam: Path, out: Path, ns) -> dict:
+@contextlib.contextmanager
+def logged(handler: logging.Handler):
+    """The port's INFO log lines to `handler` while the block runs."""
+    logger = logging.getLogger("oarfish_tpu_torch")
+    level = logger.level
+    logger.setLevel(logging.INFO)
+    logger.addHandler(handler)
+    try:
+        yield handler
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+
+
+def run_once(bam: Path, out: Path, ns, extra=()) -> dict:
     """One quantification of `bam` with the CLI's defaults and `--impl`,
-    `--cov`, `--device`."""
+    `--cov`, `--device`, and the CLI arguments `extra`; a run that draws
+    bootstrap replicates also reports their seconds and iterations."""
     from .cli import build_parser, to_args
     from .config import resolve_filters
     from .quant.bulk import quantify_bulk_alignments_from_bam
 
-    argv = ["--alignments", str(bam), "-o", str(out), "--em-impl", ns.impl]
+    argv = ["--alignments", str(bam), "-o", str(out), "--em-impl", ns.impl,
+            *extra]
     if ns.cov:
         argv.append("--model-coverage")
     if ns.device is not None:
         argv += ["--device", ns.device]
     args = to_args(build_parser().parse_args(argv))
     opts = resolve_filters(args)
-    cap = PhaseCapture()
-    logger = logging.getLogger("oarfish_tpu_torch")
-    level = logger.level
-    logger.setLevel(logging.INFO)
-    logger.addHandler(cap)
-    try:
+    with logged(PhaseCapture()) as cap:
         t0 = time.perf_counter()
         counts = quantify_bulk_alignments_from_bam(args, opts)
         wall = time.perf_counter() - t0
-    finally:
-        logger.removeHandler(cap)
-        logger.setLevel(level)
-    return {
+    run = {
         "wall_s": round(wall, 3),
         "pack": cap.pack,
         "route_build_s": cap.route_build_s,
@@ -486,19 +504,32 @@ def run_once(bam: Path, out: Path, ns) -> dict:
         "em_iters": cap.em_iters,
         "impl": cap.impl,
         "counts_sum": float(np.sum(counts)),
-        "peak_rss_gb": round(
-            resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6, 2),
+        "peak_rss_gb": peak_rss_gb(),
     }
+    if cap.boot is not None:
+        run["bootstrap_s"], run["bootstrap_iterations"] = cap.boot
+    return run
+
+
+def work_dir(stack: contextlib.ExitStack, given, prefix: str) -> Path:
+    """`given`, made if missing, or a temporary directory that `stack`
+    removes."""
+    if given is None:
+        return Path(stack.enter_context(tempfile.TemporaryDirectory(
+            prefix=prefix)))
+    work = Path(given)
+    work.mkdir(parents=True, exist_ok=True)
+    return work
+
+
+def peak_rss_gb() -> float:
+    """This process's peak resident set so far, in GB."""
+    return round(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6, 2)
 
 
 def e2e_bench(ns, device: torch.device) -> BenchRun:
     with contextlib.ExitStack() as stack:
-        if ns.work_dir is None:
-            work = Path(stack.enter_context(tempfile.TemporaryDirectory(
-                prefix="oarfish_e2e_")))
-        else:
-            work = Path(ns.work_dir)
-            work.mkdir(parents=True, exist_ok=True)
+        work = work_dir(stack, ns.work_dir, "oarfish_e2e_")
         bam, A, gen_s = ensure_bam(work, ns.reads, ns.txps, ns.seed)
         sys.stderr.write(f"e2e: {bam} R={ns.reads} T={ns.txps} A={A} "
                          f"{bam.stat().st_size / 1e6:.0f}MB (built in "
@@ -531,12 +562,15 @@ def e2e_bench(ns, device: torch.device) -> BenchRun:
 # ---------------------------------------------------------------------------
 
 def parse_args(argv=None):
+    from . import bench_modes as modes
+
     ap = argparse.ArgumentParser(
         prog="python -m oarfish_tpu_torch.bench",
         description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
                     help="R=200,000, T=50,000, 20 iterations (--e2e: "
-                    "100,000 reads, 20,000 transcripts)")
+                    "100,000 reads, 20,000 transcripts; --sc: 2,000 cells "
+                    "x 30 reads, 5,000 transcripts)")
     ap.add_argument("--reads", type=int, default=None)
     ap.add_argument("--txps", type=int, default=None)
     ap.add_argument("--iters", type=int, default=None,
@@ -547,26 +581,63 @@ def parse_args(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, and an error without "
                     "one; cpu runs on the host on purpose)")
-    ap.add_argument("--e2e", action="store_true",
-                    help="BAM -> .quant wall time instead of the EM loop")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--e2e", action="store_true",
+                      help="BAM -> .quant wall time instead of the EM loop")
+    mode.add_argument("--sc", action="store_true",
+                      help="single-cell mode end to end "
+                      "(scripts/sc_e2e_bench.py)")
+    mode.add_argument("--genome", action="store_true",
+                      help="genome read projection end to end, the CLI in a "
+                      "child process (scripts/genome_e2e_bench.py)")
+    ap.add_argument("--boots", type=int, default=0,
+                    help="--e2e: draw this many bootstrap replicates "
+                    "(scripts/bootstrap_e2e_bench.py; 0: none)")
     ap.add_argument("--impl", default="auto", help="--e2e: --em-impl")
     ap.add_argument("--cov", action="store_true",
                     help="--e2e: quantify with --model-coverage")
-    ap.add_argument("--reps", type=int, default=1,
-                    help="--e2e: warm runs, the median reported")
-    ap.add_argument("--seed", type=int, default=0, help="--e2e: BAM seed")
+    ap.add_argument("--reps", type=int, default=None,
+                    help="--e2e: warm runs, the median reported (default 1; "
+                    "with --boots 2)")
+    ap.add_argument("--seed", type=int, default=None,
+                    help="--e2e: BAM seed (default 0); --genome: the world's "
+                    "and the reads' (default 1)")
+    ap.add_argument("--threads", type=int, default=4,
+                    help="--boots, --sc, --genome: the CLI's --threads")
+    ap.add_argument("--cells", type=int, default=None, help="--sc")
+    ap.add_argument("--reads-per-cell", type=int, default=None, help="--sc")
+    ap.add_argument("--genes", type=int, default=None, help="--genome")
     ap.add_argument("--work-dir", default=None,
-                    help="--e2e: where the BAM is built and kept (default: "
-                    "a temporary directory, removed afterwards)")
+                    help="--e2e, --sc, --genome: where the inputs are built "
+                    "and kept (default: a temporary directory, removed "
+                    "afterwards)")
     ns = ap.parse_args(argv)
-    if ns.e2e:
+    if ns.boots < 0 or (ns.boots and not ns.e2e):
+        ap.error("--boots takes a count of at least 0, with --e2e")
+    iters = None
+    if ns.sc:
+        cells, rpc, txps = modes.SC_QUICK if ns.quick else modes.SC
+        ns.cells = cells if ns.cells is None else ns.cells
+        ns.reads_per_cell = rpc if ns.reads_per_cell is None \
+            else ns.reads_per_cell
+        reads = None
+    elif ns.genome:
+        if ns.quick:
+            ap.error("--genome has no --quick shape: give --reads, --genes")
+        reads, genes = modes.GENOME
+        ns.genes = genes if ns.genes is None else ns.genes
+        txps = None
+    elif ns.e2e:
         reads, txps = E2E_QUICK if ns.quick else (R, T)
-        iters = None
     else:
         reads, txps, iters = QUICK if ns.quick else (R, T, ITERS)
     ns.reads = reads if ns.reads is None else ns.reads
     ns.txps = txps if ns.txps is None else ns.txps
     ns.iters = iters if ns.iters is None else ns.iters
+    if ns.seed is None:
+        ns.seed = 1 if ns.genome else 0
+    if ns.reps is None:
+        ns.reps = 2 if ns.boots else 1
     if ns.pairs < 1 or ns.reps < 1:
         ap.error("--pairs and --reps must be at least 1")
     return ns
@@ -574,9 +645,20 @@ def parse_args(argv=None):
 
 def main(argv=None) -> BenchRun:
     """Prints the one JSON line and returns it with what was timed."""
+    from . import bench_modes as modes
+
     ns = parse_args(argv)
     device = resolve_device(ns.device)
-    res = e2e_bench(ns, device) if ns.e2e else em_bench(ns, device)
+    if ns.genome:
+        res = modes.genome_bench(ns, device)
+    elif ns.sc:
+        res = modes.sc_bench(ns, device)
+    elif ns.e2e and ns.boots:
+        res = modes.boots_bench(ns, device)
+    elif ns.e2e:
+        res = e2e_bench(ns, device)
+    else:
+        res = em_bench(ns, device)
     print(json.dumps(res.line), flush=True)
     return res
 
