@@ -288,6 +288,7 @@ from oarfish_tpu_torch.ops.em_dense import DenseCellEm, _m_step_dense
 from oarfish_tpu_torch.ops.em_fast import FastEmData
 from oarfish_tpu_torch.ops.static_permute import GlobalRoute
 from oarfish_tpu_torch.quant import bulk
+from oarfish_tpu_torch.utils import trace
 from oarfish_tpu_torch.quant.bulk import perform_inference_and_write_output
 
 # the JAX package is named in the kernels line, never imported
@@ -318,26 +319,27 @@ DNA = np.frombuffer(b"ACGT", np.uint8)
 L1_OVER_R_LIMIT = 2e-3
 EM_DENOM_THRESH = 1e-30
 
-# name -> (wrapper module, its launch counter, CUDA source, the Pallas call
-# or kernel arm it replaces in the JAX package). The replicate-axis arms of
-# the route stage and the fused middle are entries of their own: their
-# counter counts, of the wrapper's launches, those with a replicate axis.
+# name -> (its launch counter in `utils/trace.py`, CUDA source, the Pallas
+# call or kernel arm it replaces in the JAX package). The replicate-axis
+# arms of the route stage and the fused middle are entries of their own:
+# their counter counts, of the wrapper's launches, those with a replicate
+# axis.
 KERNELS = {
-    "sorted_gather": (sg, "launch_count", "sorted_gather.cu",
+    "sorted_gather": ("launch.sorted_gather", "sorted_gather.cu",
                       "ops/gather_pallas.py:156"),
-    "tile_permute": (tp, "launch_count", "tile_permute.cu",
+    "tile_permute": ("launch.tile_permute", "tile_permute.cu",
                      "ops/static_permute.py:119"),
-    "route_stage": (rs, "launch_count", "route_stage.cu",
+    "route_stage": ("launch.route_stage", "route_stage.cu",
                     "ops/static_permute.py:771"),
-    "route_middle": (rm, "launch_count", "route_middle.cu",
+    "route_middle": ("launch.route_middle", "route_middle.cu",
                      "ops/static_permute.py:984"),
-    "route_stage_replicates": (rs, "replicate_launch_count",
+    "route_stage_replicates": ("launch.route_stage.replicate",
                                "route_stage.cu", "ops/static_permute.py:608"),
-    "route_middle_replicates": (rm, "replicate_launch_count",
+    "route_middle_replicates": ("launch.route_middle.replicate",
                                 "route_middle.cu",
                                 "ops/static_permute.py:782"),
     # not a Pallas kernel: the glue's row sums (XLA reductions there)
-    "row_sums": (rsm, "launch_count", "row_sums.cu", "ops/em_v4.py:1672"),
+    "row_sums": ("launch.row_sums", "row_sums.cu", "ops/em_v4.py:1672"),
 }
 ARMS = ("route_stage_replicates", "route_middle_replicates")
 # what the kernels line carries beside each kernel's event time
@@ -347,14 +349,18 @@ REPLICATES = 8  # one bootstrap batch
 
 
 def reset_launch_counts() -> None:
-    for module, counter, _, _ in KERNELS.values():
-        setattr(module, counter, 0)
-    rs.variant_launch_count.update(shared=0, gather=0)
+    trace.reset("launch.")
 
 
 def launch_counts() -> dict:
-    return {name: getattr(module, counter)
-            for name, (module, counter, _, _) in KERNELS.items()}
+    return {name: trace.counter(counter)
+            for name, (counter, _, _) in KERNELS.items()}
+
+
+def variant_launches() -> dict:
+    """The route stage's launches of each variant since the last reset."""
+    return {v: trace.counter(f"launch.route_stage.{v}")
+            for v in ("shared", "gather")}
 
 
 def v4_launches(m_steps: int, fused: bool, batched_steps: int = 0) -> dict:
@@ -692,6 +698,53 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+class SpanCapture(logging.Handler):
+    """The span lines (`utils/trace.py`) of the port's log."""
+
+    def __init__(self):
+        super().__init__(level=logging.INFO)
+        self.spans = []
+
+    def emit(self, record):
+        span = trace.parse(record.getMessage())
+        if span is not None:
+            self.spans.append(span)
+
+
+@contextlib.contextmanager
+def spans_logged():
+    """The spans the port emits while the block runs."""
+    handler = SpanCapture()
+    logger = logging.getLogger("oarfish_tpu_torch")
+    level = logger.level
+    logger.setLevel(logging.INFO)
+    logger.addHandler(handler)
+    try:
+        yield handler.spans
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+
+
+# the spans of a v4 build's route tables, under the build profile's names
+ROUTE_SPANS = {"route.fill": "finish.color_and_fill_tables",
+               "route.upload": "finish.upload_tables"}
+
+
+def build_phases(spans) -> dict:
+    """Seconds of a v4 build's phases from its spans: `layout` and
+    `finish`, each one's laps, and the route tables' fill (on its own
+    thread, beside the finish's laps) and upload."""
+    out = {}
+    for span in spans:
+        key = ROUTE_SPANS.get(span.name)
+        if key is None and span.name.startswith(("v4.layout", "v4.finish")):
+            key = span.name[len("v4."):]
+        if key is not None:
+            out[key] = round(span.seconds, 3)
+    return out
+
+
 class EmLogCapture(logging.Handler):
     """Collects (impl, iterations, seconds) from the log lines of
     `quant/bulk.py`, the bootstrap seconds and iterations, what `auto`
@@ -707,7 +760,6 @@ class EmLogCapture(logging.Handler):
     V3_LAYOUT = re.compile(r"v3 layout: NPAD (\d+), (\d+) chunks, "
                            r"Q (\d+) / (\d+), R1 (\d+) / (\d+), "
                            r"R3 (\d+) / (\d+)")
-    PREBUILD = re.compile(r"phase prebuild\.finish ([0-9.]+)s")
     LAYOUT = re.compile(r"v4 layout: (\d+) big transcripts, (\w+) middle")
     SC_PHASE = re.compile(r"phase (sc\.\w+) ([0-9.]+)")
     MODE_PHASE = re.compile(r"phase ((?:rawreads|genome)\.[\w.]+) ([0-9.]+)")
@@ -764,9 +816,9 @@ class EmLogCapture(logging.Handler):
         m = self.V3_LAYOUT.search(msg)
         if m:
             self.v3_layout.append([int(g) for g in m.groups()])
-        m = self.PREBUILD.search(msg)
-        if m:
-            self.prebuild.append(float(m.group(1)))
+        span = trace.parse(msg)
+        if span is not None and span.name == "prebuild.finish":
+            self.prebuild.append(span.seconds)
         if "v4 plan prefetch hit" in msg:
             self.prefetch_hits += 1
         m = self.MODE_PHASE.search(msg)
@@ -844,7 +896,7 @@ def phase_env() -> str:
 
 
 def phase_kernels() -> None:
-    sources = {source[:-3] for _, _, source, _ in KERNELS.values()}
+    sources = {source[:-3] for _, source, _ in KERNELS.values()}
     assert sources == set(kernel_build.CUDA_KERNELS)
     t0 = time.time()
     kernel_build.build_cuda_libraries()
@@ -1097,13 +1149,13 @@ def phase_k2_k3_k4_vs_plain(csr, R, T, device) -> dict:
     """The three kernels of the routed iteration on the bench CSR's own
     plan, each against its plain version, f32, bit for bit."""
     txp_id, w, boundaries, A = csr
-    timings: dict = {}
     cache = os.environ.get("OARFISH_PLAN_CACHE")
     os.environ["OARFISH_PLAN_CACHE"] = "0"  # time the build itself
     try:
         t0 = time.time()
-        data, order = em_v4.EmV4Data.build(
-            txp_id, w, boundaries, T, device=device, timings=timings)
+        with spans_logged() as spans:
+            data, order = em_v4.EmV4Data.build(
+                txp_id, w, boundaries, T, device=device)
         torch.cuda.synchronize(device)
         build_s = time.time() - t0
     finally:
@@ -1125,7 +1177,7 @@ def phase_k2_k3_k4_vs_plain(csr, R, T, device) -> dict:
                         data.t_in.lane),
             lvl=nbytes(data.seg_id)),
         build_s=round(build_s, 3),
-        build_phases_s={k: round(v, 3) for k, v in timings.items()},
+        build_phases_s=build_phases(spans),
     )
     gen = torch.Generator(device="cpu").manual_seed(1)
 
@@ -1611,7 +1663,7 @@ def phase_em_full_width(csr, R, T, device, tmp: Path, capture, fused: bool):
         if impl == "v4":
             # the bench plan's expand stage takes the shared-memory variant
             # of the route stage, its reduce stage the gather through L2
-            variants = dict(rs.variant_launch_count)
+            variants = variant_launches()
             assert variants == dict(shared=m_steps + batched,
                                     gather=m_steps + batched), variants
             res["route_stage_variant_launches"] = variants
@@ -2091,8 +2143,7 @@ def phase_cli_e2e(R, T, device, tmp: Path, capture):
                                      len(capture.layout))
         n_pb, hits = len(capture.prebuild), capture.prefetch_hits
         with environment(OARFISH_PREBUILD=prebuild,
-                         OARFISH_PLAN_CACHE_DIR=str(tmp / cache),
-                         OARFISH_PHASE_TIMING="1"):
+                         OARFISH_PLAN_CACHE_DIR=str(tmp / cache)):
             argv, counts, kept, meta, (impl, iters, em_s), run_launched, wall = (
                 run_cli(bam, tmp / f"cli_{tag}", [], device, capture))
         assert counts.shape == (T,)
@@ -2275,8 +2326,7 @@ def phase_cli_profile(device, tmp: Path, capture, cli: dict) -> tuple:
     for tag, bam, extra, twin, twin_wall, env in (
             ("v4", tmp / "e2e.bam", [], "cli_prefetch",
              cli["a8_runs"]["prefetch"]["wall_s"],
-             dict(OARFISH_PLAN_CACHE_DIR=str(tmp / "plans_b"),
-                  OARFISH_PHASE_TIMING="1")),
+             dict(OARFISH_PLAN_CACHE_DIR=str(tmp / "plans_b"))),
             ("pallas", tmp / "small.bam", ["--em-impl", "pallas"],
              "cli_pallas", cli["pallas_run"]["wall_s"], {})):
         want_files = {ext: file_digest(str(tmp / twin) + ext)
@@ -2866,10 +2916,10 @@ def phase_mode_bench(R, T, device, tmp: Path, capture, cli: dict) -> tuple:
     prev = torch.nn.functional.pad(uniform_init(data, torch.float32),
                                    (0, data.t_space - T))
     prev_b = prev.expand(len(tail), -1).contiguous()
-    arms0 = (rs.replicate_launch_count, rm.replicate_launch_count)
+    arm_counters = [KERNELS[name][0] for name in ARMS]
+    arms0 = [trace.counter(c) for c in arm_counters]
     got = em_v4.make_m_step(data, m_b)(prev_b)
-    arms = (rs.replicate_launch_count - arms0[0],
-            rm.replicate_launch_count - arms0[1])
+    arms = tuple(trace.counter(c) - a for c, a in zip(arm_counters, arms0))
     assert arms == (2, 1), arms
     with plain_v4_kernels():
         plain = em_v4.make_m_step(data, m_b)(prev_b)
@@ -3539,7 +3589,7 @@ def main(argv=None) -> int:
                       if r["k1_vs_plain"] is not None)
 
     def entry(name, measured, **extra):
-        _, _, source, replaces = KERNELS[name]
+        _, source, replaces = KERNELS[name]
         # the arms are launched by the 8 replicates of `em_full_width` and
         # by the CLI's 100 of `mode_bench`
         paths = ((launches_em, launches_mode) if name in ARMS

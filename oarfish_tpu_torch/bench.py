@@ -66,6 +66,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .utils import trace
 
 R, T, MEAN_K, ITERS = 2_000_000, 200_000, 3, 50
 QUICK = (200_000, 50_000, 20)  # reads, transcripts, iterations
@@ -426,14 +427,14 @@ def ensure_bam(work_dir: Path, reads: int, txps: int, seed: int):
 
 
 class PhaseCapture(logging.Handler):
-    """`quant/bulk.py`'s log lines of a run: the pack's timings, what
-    `auto` took, the route build's and the EM's seconds, the iterations,
-    and the bootstrap replicates' seconds and iterations."""
+    """`quant/bulk.py`'s log lines of a run: the pack's timings (the
+    attributes of the span `bulk.pack`), what `auto` took, the route
+    build's and the EM's seconds, the iterations, and the bootstrap
+    replicates' seconds and iterations."""
 
     EM = re.compile(r"(\w+) EM on \S+ \(\w+\) converged after (\d+) "
                     r"iterations in ([0-9.]+)s")
     ROUTING = re.compile(r"(v[34]) routing built in ([0-9.]+)s")
-    PACK = re.compile(r"^phase bulk\.pack (.*)$")
     BOOT = re.compile(r"^(\d+) bootstrap replicates in ([0-9.]+)s, "
                       r"iterations \[([0-9, ]*)\]")
 
@@ -445,10 +446,9 @@ class PhaseCapture(logging.Handler):
 
     def emit(self, record):
         msg = record.getMessage()
-        m = self.PACK.search(msg)
-        if m:
-            self.pack = {k: float(v) if "." in v else int(v) for k, v in
-                         (kv.split("=") for kv in m.group(1).split())}
+        span = trace.parse(msg)
+        if span is not None and span.name == "bulk.pack":
+            self.pack = dict(span.attrs)
         m = self.ROUTING.search(msg)
         if m:
             self.route_build_s = float(m.group(2))

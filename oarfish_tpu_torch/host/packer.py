@@ -21,6 +21,7 @@ import numpy as np
 from ..config import FilterOpts
 from ..constants import EMPTY_READ_NAME
 from ..io.bam import BamReader, BamRecord
+from ..utils import trace
 from .filters import filter_group
 from .store import AlignmentStore, StoreBuilder, TranscriptCoverage
 
@@ -129,7 +130,6 @@ def pack_bam_stream(
     threads: int = 4,
     sort_check_num: int = 100_000,
     keep_names: bool = False,
-    timings: Optional[dict] = None,
     chunk_observer=None,
 ):
     """Overlapped streaming pack: the C++ decoder produces group-aligned
@@ -140,9 +140,10 @@ def pack_bam_stream(
     ingest (`bulk.rs:364-682`). Returns (header, store, coverage,
     num_unmapped), or None when the native library is unavailable.
 
-    `timings`, when given, is filled with {'decode_wait_s', 'filter_s',
-    'wall_s', 'chunks'} — decode_wait_s is the time the consumer would
-    have spent blocked on decode had there been no overlap.
+    The innermost open span (`utils/trace.py`) gets the attributes
+    `decode_wait_s`, `filter_s`, `tail_s`, `wall_s` and `chunks`:
+    decode_wait_s is the time the consumer would have spent blocked on
+    decode had there been no overlap.
 
     The filter itself runs on a small pool when cores are plentiful
     (threads >= 6, like the decoder's inflate pipeline;
@@ -387,12 +388,9 @@ def pack_bam_stream(
         num_unique_alignments=num_unique,
         read_names=read_names,
     )
-    if timings is not None:
-        timings["decode_wait_s"] = t_decode[0]
-        timings["filter_s"] = t_filter
-        timings["tail_s"] = _time.perf_counter() - t_tail0
-        timings["wall_s"] = _time.perf_counter() - t_wall0
-        timings["chunks"] = n_chunks
+    trace.annotate(decode_wait_s=t_decode[0], filter_s=t_filter,
+                   tail_s=_time.perf_counter() - t_tail0,
+                   wall_s=_time.perf_counter() - t_wall0, chunks=n_chunks)
     log.info(
         "the alignment file contained %d unmapped read records.", num_unmapped
     )
@@ -411,7 +409,6 @@ def pack_bam_fast(
     threads: int = 4,
     sort_check_num: int = 100_000,
     keep_names: bool = False,
-    timings: Optional[dict] = None,
     chunk_observer=None,
 ):
     """Fast pack: overlapped streaming decode + vectorized filtering +
@@ -435,7 +432,6 @@ def pack_bam_fast(
             threads=threads,
             sort_check_num=sort_check_num,
             keep_names=keep_names,
-            timings=timings,
             chunk_observer=chunk_observer,
         )
         if res is not None:

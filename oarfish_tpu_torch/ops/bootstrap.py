@@ -22,6 +22,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import trace
 from .em import EmData, initial_abundances, run_em, run_em_squarem
 
 # replicates per batched loop: bounds the [B, A] temporaries of an m-step
@@ -64,16 +65,30 @@ def run_replicates(
     as its slowest replicate. The
     last batch is as short as it comes. Each batch's results stay on the
     device until the copy into pinned host memory that is started behind
-    them, and are read only after the last batch has been run."""
-    pending = []
-    for b0 in range(0, len(mult), batch):
-        m = torch.as_tensor(mult[b0:b0 + batch], device=init.device).to(init.dtype)
-        counts, niter = run(init.expand(m.shape[0], -1), m)
-        pending.append((_to_host(counts.double()), _to_host(niter)))
-    if init.is_cuda:
-        torch.cuda.synchronize(init.device)
-    return (np.concatenate([c.numpy() for c, _ in pending], axis=0),
-            np.concatenate([n.numpy() for _, n in pending], axis=0))
+    them, and are read only after the last batch has been run.
+
+    The batches are the span `boot.batches` (`utils/trace.py`), which ends
+    after the synchronization. Its attributes: `batches`, `batch`,
+    `useful_steps` (the m-steps each replicate ran until it froze, the
+    final step included, summed), `slot_steps` (each batch's size times
+    its m-steps, summed) and the kernels' `launches`."""
+    with trace.span("boot.batches", {"launches": trace.launches}) as sp:
+        pending = []
+        for b0 in range(0, len(mult), batch):
+            m = torch.as_tensor(mult[b0:b0 + batch],
+                                device=init.device).to(init.dtype)
+            counts_b, niter_b = run(init.expand(m.shape[0], -1), m)
+            pending.append((_to_host(counts_b.double()), _to_host(niter_b)))
+        if init.is_cuda:
+            torch.cuda.synchronize(init.device)
+        counts = np.concatenate([c.numpy() for c, _ in pending], axis=0)
+        iters = [n.numpy() for _, n in pending]
+        # a batch runs as many m-steps as its slowest replicate, and one
+        # final step
+        sp.set(batches=len(pending), batch=batch,
+               useful_steps=int(sum(n.sum() + len(n) for n in iters)),
+               slot_steps=int(sum(len(n) * (n.max() + 1) for n in iters)))
+    return counts, np.concatenate(iters, axis=0)
 
 
 def bootstrap(

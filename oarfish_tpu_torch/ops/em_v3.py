@@ -26,7 +26,6 @@ the reference serial EM (`em.rs:144-255`).
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -35,6 +34,7 @@ import torch
 
 from ..constants import EM_DENOM_THRESH
 from ..device import resolve_device
+from ..utils import trace
 from .em import em_loop, finish_em, squarem_em
 from .em_fast import TILE, offset_sums, offset_tables
 from .sorted_gather import LANES, SortedGatherPlan, gather_rows
@@ -86,24 +86,15 @@ class EmV3Data:
         dtype: torch.dtype = torch.float32,
         device=None,
         debug: bool = False,
-        timings: Optional[dict] = None,
     ):
         """Returns (data, read_order) where `read_order[i]` is the original
         read of relabeled read i (multiplicities are given in that order),
         and with `debug` also the host tables of the JAX package's `dbg`.
         `device=None` is the package default (`cuda`; raises without a
-        card), `"cpu"` is the host on request. `timings`, when given,
-        receives the seconds of each build phase. Raises `ValueError` when
+        card), `"cpu"` is the host on request. Each build phase ends with a
+        lap of the caller's span (`utils/trace.py`). Raises `ValueError` when
         a permute's quota degenerates (too few alignments)."""
         device = resolve_device(device)
-        t_last = [time.perf_counter()]
-
-        def tick(label: str) -> None:
-            now = time.perf_counter()
-            if timings is not None:
-                timings[label] = now - t_last[0]
-            t_last[0] = now
-
         txp_id = np.asarray(txp_id, dtype=np.int64)
         weights = np.asarray(weights, dtype=np.float64)
         boundaries = np.asarray(boundaries, dtype=np.int64)
@@ -117,7 +108,7 @@ class EmV3Data:
         txp_sorted = txp_id[order]
         plan = SortedGatherPlan.build(txp_sorted, T + 1, device="cpu")
         L = plan.out_len
-        tick("gather_plan")
+        trace.lap("gather_plan")
 
         # ---- read buckets (as em_fast): rows relabeled contiguous
         maxk = int(sizes.max()) if R else 1
@@ -163,7 +154,7 @@ class EmV3Data:
         read_order = (
             np.concatenate(order_parts) if order_parts else np.empty(0, np.int64)
         )
-        tick("read_buckets")
+        trace.lap("read_buckets")
 
         # ---- rounded layout: the gather plan's rows SPREAD evenly over
         # the rounded row count, all-pad rows (base -2: zeros, w_csc 0)
@@ -198,21 +189,21 @@ class EmV3Data:
         inv[src_pos[mask]] = np.nonzero(mask)[0]
         inv[A] = NPAD
         offsets = inv[offsets]
-        tick("csc_layout")
+        trace.lap("csc_layout")
 
         # ---- permutes (full-length bijections, flow-balanced pads)
         # P1: out[bucket_slot] = contrib_csc[csc_pos]; every other slot
         # routes a zero-valued source (csc pads have w = 0)
         perm1 = balanced_pad_routing(slot_of_aln, csc_pos, NPAD)
-        tick("pad_routing_p1")
+        trace.lap("pad_routing_p1")
         p1 = GlobalPermute(perm1, NPAD, device=device).plan
-        tick("permute_p1")
+        trace.lap("permute_p1")
         # P2: out[csc_pos] = scale_slots[bucket_slot]; csc pads receive
         # unused bucket slots (multiplied by w = 0 downstream)
         perm2 = balanced_pad_routing(csc_pos, slot_of_aln, NPAD)
-        tick("pad_routing_p2")
+        trace.lap("pad_routing_p2")
         p2 = GlobalPermute(perm2, NPAD, device=device).plan
-        tick("permute_p2")
+        trace.lap("permute_p2")
 
         def dev(a, to=None):
             t = torch.as_tensor(np.ascontiguousarray(a), device=device)
@@ -239,7 +230,7 @@ class EmV3Data:
             num_reads=R,
             num_txps=T,
         )
-        tick("upload")
+        trace.lap("upload")
         if debug:
             dbg = {
                 "perm1": perm1,

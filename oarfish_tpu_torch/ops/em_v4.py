@@ -75,7 +75,6 @@ from __future__ import annotations
 import logging
 import queue
 import threading
-import time
 from dataclasses import dataclass
 from functools import cached_property
 from typing import List, Optional, Sequence, Tuple
@@ -85,6 +84,7 @@ import torch
 
 from ..constants import EM_DENOM_THRESH
 from ..device import resolve_device
+from ..utils import trace
 from . import balance as _balance
 from . import plan_cache
 from .em import em_loop, finish_em, squarem_loop
@@ -477,7 +477,6 @@ class EmV4Data:
         num_txps: int,
         dtype: torch.dtype = torch.float32,
         device=None,
-        timings: Optional[dict] = None,
         pre: Optional[dict] = None,
         prefetch=None,
         pointer_key: Optional[str] = None,
@@ -486,8 +485,8 @@ class EmV4Data:
         `read_order[i]` is the original read of padded bucket row i
         (multiplicity vectors are given in that order). `device=None` is
         the package default (`cuda`; raises without a card), `"cpu"` is the
-        host on request. `timings`, when given, receives the seconds of
-        each build phase.
+        host on request. The build's two phases are the spans `v4.layout`
+        and `v4.finish` (`utils/trace.py`), each phase's steps their laps.
 
         The layout and the route tables depend only on the CSR structure,
         so they are kept in the persistent plan cache (`plan_cache.py`):
@@ -532,15 +531,11 @@ class EmV4Data:
                     if pointer_key is not None:
                         plan_cache.write_pointer(pointer_key, cache_key)
                     return out
-        t0 = time.perf_counter()
-        lay = _v4_layout(txp_id, weights, boundaries, num_txps, timings,
-                         pre=pre)
-        t1 = time.perf_counter()
-        data = _v4_finish(lay, dtype, device, cache_key=cache_key,
-                          timings=timings, pointer_key=pointer_key)
-        if timings is not None:
-            timings["layout"] = t1 - t0
-            timings["finish"] = time.perf_counter() - t1
+        with trace.span("v4.layout"):
+            lay = _v4_layout(txp_id, weights, boundaries, num_txps, pre=pre)
+        with trace.span("v4.finish"):
+            data = _v4_finish(lay, dtype, device, cache_key=cache_key,
+                              pointer_key=pointer_key)
         return data, lay["read_order"]
 
 
@@ -549,7 +544,6 @@ def _v4_layout(
     weights: np.ndarray,
     boundaries: np.ndarray,
     num_txps: int,
-    timings: Optional[dict] = None,
     pre: Optional[dict] = None,
     envelope: Optional[dict] = None,
 ) -> dict:
@@ -574,15 +568,9 @@ def _v4_layout(
     the tile rows of T space: the shards of a sharded build then share
     them. Rows the envelope adds are dead (all-zero slots), and the
     mean-flow rule that skips the balance passes is not applied (as in
-    the JAX package)."""
-    _t_last = [time.perf_counter()]
+    the JAX package).
 
-    def _tick(label: str) -> None:
-        now = time.perf_counter()
-        if timings is not None:
-            timings["layout." + label] = now - _t_last[0]
-        _t_last[0] = now
-
+    Each step ends with a lap of the caller's span (`utils/trace.py`)."""
     txp_id = np.asarray(txp_id, dtype=np.int64)
     weights = np.asarray(weights, dtype=np.float64)
     boundaries = np.asarray(boundaries, dtype=np.int64)
@@ -618,7 +606,7 @@ def _v4_layout(
             align_groups=True,
         )
     row_space_r = sum(rp for rp, _ in read_shapes)
-    _tick("read_buckets")
+    trace.lap("read_buckets")
 
     # ---- transcript-side buckets (pow2 up to CAPK, then row-chunked)
     counts = (
@@ -635,7 +623,7 @@ def _v4_layout(
         else ([], [], [], 0)
     )
     row_space_s = sum(rp for rp, _ in small_shapes)
-    _tick("small_buckets")
+    trace.lap("small_buckets")
 
     big_txps = np.nonzero(counts > CAPK)[0]
     big_txps = rng_t.permutation(big_txps)
@@ -663,7 +651,7 @@ def _v4_layout(
         )
     big_start = n_small_slots
     n_slots_t = n_small_slots + big_rows_pad * CAPK
-    _tick("big_tables")
+    trace.lap("big_tables")
 
     # Layout policy: the greedy/repair balance machinery exists to pull
     # the max route-cell flow under the next 128 quota boundary. When the
@@ -706,7 +694,7 @@ def _v4_layout(
         rank_sorted = np.arange(A) - run_start[txp_id[ord2]]
         rank = np.zeros(A, dtype=np.int64)
         rank[ord2] = rank_sorted
-    _tick("rank")
+    trace.lap("rank")
 
     # ---- big-transcript slots (fixed contiguous rows; their alignment
     # slots smear across many chunks per group, self-decorrelating)
@@ -729,7 +717,7 @@ def _v4_layout(
             txp_slot_of_aln[big_idx] = _colmajor_slot(
                 big_start, CAPK, row, rk_big % CAPK
             )
-    _tick("big_slots")
+    trace.lap("big_slots")
 
     BCHn = ((max(n_slots_r, n_slots_t) + BCH - 1) // BCH) * BCH
     n_chk = BCHn // BCH
@@ -837,7 +825,7 @@ def _v4_layout(
         return row_of, pos
 
     row_of_small_txp, small_txp_row_pos = _apply_small(row_within_t)
-    _tick("small_pass1")
+    trace.lap("small_pass1")
 
     # ---- read placement (pass 2: greedy on (txp-chunk, read-chunk)
     # cells — the flow matrix both routes share)
@@ -864,7 +852,7 @@ def _v4_layout(
     off_r = np.zeros(len(items_r) + 1, dtype=np.int64)
     np.cumsum(sizes_r, out=off_r[1:])
     tot_r = int(off_r[-1])
-    _tick("rp2.setup")
+    trace.lap("rp2.setup")
     aln_idx_r = _balance.ramp_fill(off_r, boundaries[items_r], tot_r)
     if aln_idx_r is None:
         col_r = np.arange(tot_r) - np.repeat(off_r[:-1], sizes_r)
@@ -873,16 +861,16 @@ def _v4_layout(
         # only the NumPy _apply_reads fallback needs col_r, and native
         # ramp_fill implies the native read_slots path is available
         col_r = None
-    _tick("rp2.ramp")
+    trace.lap("rp2.ramp")
     if use_balance and len(items_r):
         order_r = _desc_order(sizes_r, rng_b)
-        _tick("rp2.order")
+        trace.lap("rp2.order")
         row_within_r, _, _ = _balance.greedy_place(
             off_r,
             _gdiv(txp_slot_of_aln, aln_idx_r, BCH),
             ib_r, buckets_r, n_chk, n_chk, order_r,
         )
-        _tick("rp2.greedy")
+        trace.lap("rp2.greedy")
     else:
         row_within_r = (
             np.concatenate(
@@ -920,7 +908,7 @@ def _v4_layout(
                 )
 
     _apply_reads(row_within_r)
-    _tick("read_pass2")
+    trace.lap("read_pass2")
 
     # ---- pass 3: re-place small transcripts against the chosen read
     # layout (transposed flow matrix, big flows preloaded)
@@ -953,7 +941,7 @@ def _v4_layout(
             off_t, src3, ib_t, buckets_t, n_chk, n_chk, order_t, F3,
         )
         row_of_small_txp, small_txp_row_pos = _apply_small(row_within_t)
-    _tick("small_pass3")
+    trace.lap("small_pass3")
 
     NPAD = ((max(n_slots_r, n_slots_t) + CH - 1) // CH) * CH
 
@@ -1098,7 +1086,7 @@ def _v4_layout(
         # (CR, final maxflow) so _v4_finish skips its 3-way route_maxflow
         # recompute over all CR candidates
         route_sel = (CRsel, int(mf))
-    _tick("repair_pass4")
+    trace.lap("repair_pass4")
 
     # ---- tiny T-space tile permutes
     t_rows = _tile_rows(max(T, row_space_s + n_big, 1))
@@ -1134,7 +1122,7 @@ def _v4_layout(
     # possible (they hold zeros); any leftover free inputs also work
     # because v's tail is zero-filled
     perm_out[free_out] = np.nonzero(~used)[0]
-    _tick("tile_permute_specs")
+    trace.lap("tile_permute_specs")
 
     return {
         "slot_of_aln": slot_of_aln,
@@ -1249,7 +1237,6 @@ def _read_lvl_ids(read_shapes, read_starts, n_chunks: int,
 
 def _v4_finish(lay: dict, dtype: torch.dtype, device: torch.device,
                cache_key: Optional[str] = None,
-               timings: Optional[dict] = None,
                pointer_key: Optional[str] = None,
                geometry: Optional[Tuple] = None) -> EmV4Data:
     """Phase 2: construct the two GlobalRoutes and assemble the device
@@ -1267,14 +1254,6 @@ def _v4_finish(lay: dict, dtype: torch.dtype, device: torch.device,
         mfs = ({sel[0]: sel[1]} if sel is not None else _route_maxflows(
             lay["slot_of_aln"], lay["txp_slot_of_aln"], lay["NPAD"]))
         CR, NPAD, geo = route_config(mfs, lay["NPAD"])
-    t_last = [time.perf_counter()]
-
-    def tick(label: str) -> None:
-        now = time.perf_counter()
-        if timings is not None:
-            timings["finish." + label] = now - t_last[0]
-        t_last[0] = now
-
     routes = build_route_pair_async(
         lay["slot_of_aln"], lay["txp_slot_of_aln"], NPAD,
         force_geometry=geo, chunk_rows=CR,
@@ -1289,13 +1268,9 @@ def _v4_finish(lay: dict, dtype: torch.dtype, device: torch.device,
     w_txp = _w_txp(lay["txp_slot_of_aln"], lay["weights"],
                    routes.n_src * CR * LANES)
     parts = _device_parts(lay, seg_id, w_txp, dtype, device)
-    tick("seg_id_w_txp_tiles")
+    trace.lap("seg_id_w_txp_tiles")
     p_a, p_b = routes()
-    tick("routes_join_upload")
-    if timings is not None:
-        # the fill ran beside the two phases above, on its own thread
-        timings["finish.color_and_fill_tables"] = routes.fill_s
-        timings["finish.upload_tables"] = routes.upload_s
+    trace.lap("routes_join_upload")
     if cache_key is not None:
         plan_cache.store_async(
             cache_key, plan_cache.payload_from_build(lay, routes.host, seg_id),

@@ -44,6 +44,7 @@ from typing import Optional
 
 import torch
 
+from ..utils import trace
 from .route_stage import (
     LANES,
     SHARED_LIMIT,
@@ -57,11 +58,6 @@ from .route_stage import (
     q_inverse,
     stage_apply_reference,
 )
-
-# number of kernel launches made by `route_middle` in this process, and how
-# many of them carried a replicate axis
-launch_count = 0
-replicate_launch_count = 0
 
 # levels of the sum tree that one thread of the kernel adds in registers
 # (a segment of 2^4 rows); the levels above sit in a tree area beside the
@@ -150,7 +146,6 @@ def route_middle_cuda(
 ) -> torch.Tensor:
     """Launch the CUDA kernel, once whatever the number of replicates.
     Raises on anything it does not take and on a refused launch."""
-    global launch_count, replicate_launch_count
     n_chunks, R_q, R_c = a.n_chunks, a.R_in, a.R_out
     B, Q = check_values(y, n_chunks, R_q)
     dev = y.device
@@ -185,8 +180,9 @@ def route_middle_cuda(
     if err != 0:
         raise RuntimeError(
             f"route_middle kernel launch failed: CUDA error {err}")
-    launch_count += 1
-    replicate_launch_count += 1 if B else 0
+    trace.count("launch.route_middle")
+    if B:
+        trace.count("launch.route_middle.replicate")
     return out
 
 

@@ -44,15 +44,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..kernels import build
+from ..utils import trace
 
 LANES = 128
-
-# number of kernel launches made by `route_stage` in this process, and how
-# many of them carried a replicate axis
-launch_count = 0
-replicate_launch_count = 0
-# of those launches, how many took each variant of the kernel
-variant_launch_count = {"shared": 0, "gather": 0}
 
 KERNEL_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -292,7 +286,6 @@ def route_stage_cuda(x: torch.Tensor, stage: Stage,
                      mul: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the CUDA kernel, once whatever the number of replicates.
     Raises on anything it does not take and on a refused launch."""
-    global launch_count, replicate_launch_count
     n, R_in, R_out = stage.n_chunks, stage.R_in, stage.R_out
     B, Q = check_values(x, n, R_in)
     dev = x.device
@@ -319,9 +312,10 @@ def route_stage_cuda(x: torch.Tensor, stage: Stage,
         )
     if err != 0:
         raise RuntimeError(f"route_stage kernel launch failed: CUDA error {err}")
-    launch_count += 1
-    replicate_launch_count += 1 if B else 0
-    variant_launch_count[variant] += 1
+    trace.count("launch.route_stage")
+    trace.count(f"launch.route_stage.{variant}")
+    if B:
+        trace.count("launch.route_stage.replicate")
     return out
 
 

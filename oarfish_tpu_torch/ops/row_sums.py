@@ -49,6 +49,7 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..utils import trace
 from .route_stage import KERNEL_SUFFIX, kernel_function, on_device
 
 LANES = 128
@@ -60,9 +61,6 @@ MID_SLOTS = 64  # sums of 32 window sums a tile keeps there
 LINE = 32  # neighbouring outputs of a W = 128 row that fill a 128-byte line
 ZERO_SPAN = 8 * THREADS  # outputs of a zero tile
 REPLICATE_CAP = 8  # replicates a plan's scratch is first made for
-
-# number of kernel launches made by `row_sums` in this process
-launch_count = 0
 
 _P = ctypes.c_void_p
 # x, x_stride, tiles, n_tiles, groups, n_groups, n_out, B, out, scratch,
@@ -340,7 +338,6 @@ def row_sums_cuda(x: torch.Tensor, what: Sums) -> torch.Tensor:
     """Launch the CUDA kernel once for a plan (or a table's rows) and every
     replicate. Raises on anything it does not take and on a refused
     launch."""
-    global launch_count
     if not x.is_cuda:
         raise ValueError("row_sums_cuda needs a CUDA tensor")
     plan = _plan(what)
@@ -365,7 +362,7 @@ def row_sums_cuda(x: torch.Tensor, what: Sums) -> torch.Tensor:
         )
     if err != 0:
         raise RuntimeError(f"row_sums kernel launch failed: CUDA error {err}")
-    launch_count += 1
+    trace.count("launch.row_sums")
     return out
 
 

@@ -34,13 +34,11 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils import trace
 
 LANES = 128
 CHUNK_ROWS = 256  # n_rows is padded to a multiple of this, as in the JAX plan
 HI_BIT = 7  # the code's bit that says "in base + 1"; the lane is below it
-
-# number of kernel launches made by `sorted_gather` in this process
-launch_count = 0
 
 _KERNEL_DTYPES = {torch.float32: "sorted_gather_f32",
                   torch.float64: "sorted_gather_f64"}
@@ -201,7 +199,6 @@ def gather_rows_cuda(
     """Launch the CUDA kernel: `[n]` or `[B, n]` table (`n <= S*128`) ->
     `[n_rows, 128]` / `[B, n_rows, 128]` of the table's dtype. Raises on
     anything the kernel does not take and on a refused launch."""
-    global launch_count
     if not table.is_cuda:
         raise ValueError("gather_rows_cuda needs a CUDA tensor")
     if table.dtype not in _KERNEL_DTYPES:
@@ -234,7 +231,7 @@ def gather_rows_cuda(
         )
     if err != 0:
         raise RuntimeError(f"sorted_gather kernel launch failed: CUDA error {err}")
-    launch_count += 1
+    trace.count("launch.sorted_gather")
     return out
 
 

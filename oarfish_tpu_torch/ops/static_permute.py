@@ -54,7 +54,6 @@ from __future__ import annotations
 import math
 import os
 import threading
-import time
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
@@ -62,6 +61,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils import trace
 from .permute_plan import (
     LANES,
     TilePermutePlan,
@@ -952,9 +952,9 @@ def build_route_pair_async(
     everything geometry-dependent (w_txp, seg_id) concurrently with the
     coloring. Call the handle to join and get (fwd.plan, rev.plan). With
     `keep_host=True` the host-side tables survive as `handle.host` (for
-    the persistent plan cache). After the join `handle.fill_s` and
-    `handle.upload_s` hold the seconds of the table fill (coloring
-    included) and of the copies to the device."""
+    the persistent plan cache). The table fill (coloring included) is
+    the span `route.fill` on its thread, the copies to the device the
+    span `route.upload` (`utils/trace.py`)."""
     fwd = GlobalRoute(out_idx, in_idx, n_pad,
                       force_geometry=force_geometry,
                       chunk_rows=chunk_rows, n_pad_out=n_pad_out,
@@ -967,17 +967,16 @@ def build_route_pair_async(
     state = {}
 
     def fill():
-        t0 = time.perf_counter()
         try:
-            if not route_tables_pair_native(
-                out_idx, in_idx, chunk_rows, fwd.n_src, fwd.n_dst, fwd.Q,
-                fwd._tables, rev._tables,
-            ):
-                fwd._fill_tables()
-                rev._fill_tables()
+            with trace.span("route.fill"):
+                if not route_tables_pair_native(
+                    out_idx, in_idx, chunk_rows, fwd.n_src, fwd.n_dst,
+                    fwd.Q, fwd._tables, rev._tables,
+                ):
+                    fwd._fill_tables()
+                    rev._fill_tables()
         except BaseException as e:  # noqa: BLE001 - re-raised at join
             state["err"] = e
-        state["fill_s"] = time.perf_counter() - t0
 
     th = threading.Thread(target=fill, daemon=True)
     th.start()
@@ -989,11 +988,9 @@ def build_route_pair_async(
         if keep_host:
             # the views keep their slabs alive after `_finalize`
             handle.host = (fwd.host(), rev.host())
-        t0 = time.perf_counter()
-        fwd._finalize()
-        rev._finalize()
-        handle.fill_s = state["fill_s"]
-        handle.upload_s = time.perf_counter() - t0
+        with trace.span("route.upload"):
+            fwd._finalize()
+            rev._finalize()
         return fwd.plan, rev.plan
 
     handle.n_src, handle.n_dst = fwd.n_src, fwd.n_dst

@@ -31,6 +31,7 @@ import ctypes
 
 import torch
 
+from ..utils import trace
 from .route_stage import (
     KERNEL_SUFFIX,
     LANES,
@@ -40,9 +41,6 @@ from .route_stage import (
     on_device,
     stage_apply_reference,
 )
-
-# number of kernel launches made by `tile_permute` in this process
-launch_count = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # x, off, off_bytes, out, n_tiles, rows, B, stream
@@ -66,7 +64,6 @@ def tile_permute_cuda(x: torch.Tensor, stage: Stage,
                       replicates: int = 1) -> torch.Tensor:
     """Launch the CUDA kernel, once whatever the number of replicates.
     Raises on anything it does not take and on a refused launch."""
-    global launch_count
     if not x.is_cuda:
         raise ValueError("tile_permute_cuda needs a CUDA tensor")
     if x.dtype not in KERNEL_SUFFIX:
@@ -89,7 +86,7 @@ def tile_permute_cuda(x: torch.Tensor, stage: Stage,
     if err != 0:
         raise RuntimeError(
             f"tile_permute kernel launch failed: CUDA error {err}")
-    launch_count += 1
+    trace.count("launch.tile_permute")
     return out
 
 

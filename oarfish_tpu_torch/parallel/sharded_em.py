@@ -39,13 +39,9 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 from ..ops.em import EmData, _m_step, csr_offsets, em_loop, finish_em, squarem_em
+from ..utils import trace
 
 log = logging.getLogger("oarfish_tpu_torch")
-
-# the all-reduces across processes so far: calls, and seconds from the
-# partial's arrival on the host to the sum's (waiting for the slowest
-# process included)
-all_reduce_stats = {"calls": 0, "seconds": 0.0}
 
 
 def shard_devices(device, num_shards: int) -> list:
@@ -84,7 +80,10 @@ class ShardMesh:
         """The sum of the local shards' partials, added in shard order on
         the first shard's device, then across processes: every process and
         every shard gets the same bits. Gloo adds across processes on the
-        host, so a CUDA sum goes there and back."""
+        host, so a CUDA sum goes there and back. The counters
+        `allreduce.calls` and `allreduce.seconds` (`utils/trace.py`) count
+        the all-reduces and the seconds from the partial's arrival on the
+        host to the sum's, waiting for the slowest process included."""
         total = partials[0]
         for p in partials[1:]:
             total = total + p.to(total.device)
@@ -92,8 +91,8 @@ class ShardMesh:
             host = total.cpu()
             t0 = time.perf_counter()
             dist.all_reduce(host)
-            all_reduce_stats["seconds"] += time.perf_counter() - t0
-            all_reduce_stats["calls"] += 1
+            trace.count("allreduce.seconds", time.perf_counter() - t0)
+            trace.count("allreduce.calls")
             total = host.to(total.device)
         return total
 

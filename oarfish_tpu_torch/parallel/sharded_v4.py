@@ -28,7 +28,6 @@ there is no downgrade to the segment-sum sharded EM.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -46,6 +45,7 @@ from ..ops.em_v4 import (
     route_config,
 )
 from ..ops.static_permute import LANES, route_maxflow
+from ..utils import trace
 from .sharded_em import ShardMesh, log, log_collective, shard_devices
 
 
@@ -99,43 +99,42 @@ class ShardedV4:
                 boundaries[s : e + 1] - lo,
             )
 
-        t0 = time.perf_counter()
-        env = merge_envelopes(
-            [compute_envelope(shard_csr(d)[0], shard_csr(d)[2], num_txps)
-             for d in range(D)]
-        )
-        lays = [
-            _v4_layout(*shard_csr(d), num_txps, envelope=env)
-            for d in range(D)
-        ]
-        npads = {lay["NPAD"] for lay in lays}
-        assert len(npads) == 1, f"enveloped NPADs diverged: {npads}"
-        NPAD = npads.pop()
-        # per-chunk-size maxflows, maxed over shards, then one shared
-        # (chunk_rows, npad, (npd, Q)) route config for every shard
-        mfs = {}
-        for CR in _CR_CANDIDATES:
-            CHR = CR * LANES
-            npad_r = ((NPAD + CHR - 1) // CHR) * CHR
-            mfs[CR] = max(
-                route_maxflow(
-                    lay["slot_of_aln"], lay["txp_slot_of_aln"], npad_r,
-                    chunk=CHR,
-                )
-                for lay in lays
+        with trace.span("v4.layout", shards=D) as layouts:
+            env = merge_envelopes(
+                [compute_envelope(shard_csr(d)[0], shard_csr(d)[2], num_txps)
+                 for d in range(D)]
             )
-        self.geometry = route_config(mfs, NPAD)
-        self.layout_s = time.perf_counter() - t0
+            lays = [
+                _v4_layout(*shard_csr(d), num_txps, envelope=env)
+                for d in range(D)
+            ]
+            npads = {lay["NPAD"] for lay in lays}
+            assert len(npads) == 1, f"enveloped NPADs diverged: {npads}"
+            NPAD = npads.pop()
+            # per-chunk-size maxflows, maxed over shards, then one shared
+            # (chunk_rows, npad, (npd, Q)) route config for every shard
+            mfs = {}
+            for CR in _CR_CANDIDATES:
+                CHR = CR * LANES
+                npad_r = ((NPAD + CHR - 1) // CHR) * CHR
+                mfs[CR] = max(
+                    route_maxflow(
+                        lay["slot_of_aln"], lay["txp_slot_of_aln"], npad_r,
+                        chunk=CHR,
+                    )
+                    for lay in lays
+                )
+            self.geometry = route_config(mfs, NPAD)
+        self.layout_s = layouts.seconds
         # num_reads is informational in EmV4Data; every shard carries the
         # global count, as in the JAX package
-        self.datas: List[EmV4Data] = [
-            dataclasses.replace(
-                _v4_finish(lay, dtype, torch.device(dev),
-                           geometry=self.geometry),
-                num_reads=self.num_reads,
-            )
-            for lay, dev in zip(lays, devices)
-        ]
+        self.datas: List[EmV4Data] = []
+        for d, (lay, dev) in enumerate(zip(lays, devices)):
+            with trace.span("v4.finish", shard=d):
+                data = _v4_finish(lay, dtype, torch.device(dev),
+                                  geometry=self.geometry)
+            self.datas.append(dataclasses.replace(data,
+                                                  num_reads=self.num_reads))
         for dd in self.datas[1:]:
             assert (dd.t_space, dd.row_space_r) == (
                 self.datas[0].t_space, self.datas[0].row_space_r), (

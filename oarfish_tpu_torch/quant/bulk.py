@@ -83,12 +83,13 @@ from ..parallel.multihost import (
     sharded_em_global_local,
     split_bootstrap_multiplicities,
 )
-from ..parallel.sharded_em import all_reduce_stats, shard_devices, sharded_em
+from ..parallel.sharded_em import shard_devices, sharded_em
 from ..parallel.sharded_v4 import (
     build_sharded_v4,
     make_sharded_v4_runner,
     sharded_v4_bootstrap,
 )
+from ..utils import trace
 from ..utils.digest import LazyDigest, digest_from_header
 from .meta import get_json_info
 from .short_read import read_short_quant_vec
@@ -100,6 +101,12 @@ from .writers import (
 )
 
 log = logging.getLogger("oarfish_tpu_torch")
+
+# the attribute of a span that counts the hand-written kernels' launches
+LAUNCHES = {"launches": trace.launches}
+# the attributes of a span that count the all-reduces across processes
+ALLREDUCES = {"allreduces": "allreduce.calls",
+              "allreduce_s": "allreduce.seconds"}
 
 PORTED_IMPLS = ("segsum", "fast", "pallas", "v3", "v4")
 
@@ -160,27 +167,12 @@ def build_em_inputs(
     )
 
 
-def perform_inference_and_write_output(
-    store: AlignmentStore,
-    coverage: TranscriptCoverage,
-    txps_name,
-    txps_len,
-    opts: FilterOpts,
-    args: Args,
-    digest: dict,
-    aln_time_s: float,
-    pre: Optional[dict] = None,
-    plan_hint=(None, None),
-) -> np.ndarray:
-    """Shared inference + output tail (`bulk.rs:83-210`). `pre` carries
-    the v4 layout inputs prebuilt during the streaming pack; `plan_hint`
-    is (plan-cache Prefetch, BAM pointer key) from
-    `quantify_bulk_alignments_from_bam`."""
-    device = resolve_device(args.device)
-    dtype = resolve_em_dtype(args.em_dtype, device)
+def _prepare(store: AlignmentStore, coverage: TranscriptCoverage, txps_name,
+             opts: FilterOpts, args: Args, device, multi: bool):
+    """The host's statistics before the EM: the discard table, the KDE,
+    the coverage model (the span `bulk.covmodel`) and the CSR's sizes;
+    returns (KDE densities or None, the short-read abundances or None)."""
     log.info("discard table:\n%s", store.discard.to_table())
-
-    multi = process_count() > 1
     if args.sharded_inputs and multi:
         if args.use_kde:
             log.warning(
@@ -206,19 +198,18 @@ def perform_inference_and_write_output(
         dens_prob = kde.lookup(tlen, aln_len)
 
     if opts.model_coverage:
-        t_cov = time.time()
-        if os.environ.get("OARFISH_COVMODEL") == "torch":
-            # the segment-op formulation on the run's device
-            cov_flat = logistic_prob_torch(coverage, args.growth_rate,
-                                           device=device)
-            normalize_read_probs_torch(store, coverage, cov_flat,
-                                       args.bin_width, device=device)
-        else:
-            cov_flat = logistic_prob(coverage, args.growth_rate,
-                                     threads=args.threads)
-            normalize_read_probs(store, coverage, cov_flat, args.bin_width,
-                                 threads=args.threads)
-        log.info("phase bulk.covmodel %.3f", time.time() - t_cov)
+        with trace.span("bulk.covmodel"):
+            if os.environ.get("OARFISH_COVMODEL") == "torch":
+                # the segment-op formulation on the run's device
+                cov_flat = logistic_prob_torch(coverage, args.growth_rate,
+                                               device=device)
+                normalize_read_probs_torch(store, coverage, cov_flat,
+                                           args.bin_width, device=device)
+            else:
+                cov_flat = logistic_prob(coverage, args.growth_rate,
+                                         threads=args.threads)
+                normalize_read_probs(store, coverage, cov_flat,
+                                     args.bin_width, threads=args.threads)
 
     log.info("Total number of alignment records : %d", store.num_alignments)
     log.info("number of aligned reads : %d", store.num_reads)
@@ -227,7 +218,34 @@ def perform_inference_and_write_output(
     init = None
     if args.short_quant is not None:
         init = read_short_quant_vec(args.short_quant, txps_name)
+    return dens_prob, init
 
+
+def perform_inference_and_write_output(
+    store: AlignmentStore,
+    coverage: TranscriptCoverage,
+    txps_name,
+    txps_len,
+    opts: FilterOpts,
+    args: Args,
+    digest: dict,
+    aln_time_s: float,
+    pre: Optional[dict] = None,
+    plan_hint=(None, None),
+) -> np.ndarray:
+    """Shared inference + output tail (`bulk.rs:83-210`). `pre` carries
+    the v4 layout inputs prebuilt during the streaming pack; `plan_hint`
+    is (plan-cache Prefetch, BAM pointer key) from
+    `quantify_bulk_alignments_from_bam`. Its phases are the spans
+    `bulk.prepare`, `bulk.route`, `bulk.em`, `bulk.write.quant`,
+    `boot.draw`, `boot.batches` (`ops/bootstrap.py`),
+    `bulk.write.infreps` and `bulk.write.probs` (`utils/trace.py`)."""
+    device = resolve_device(args.device)
+    dtype = resolve_em_dtype(args.em_dtype, device)
+    multi = process_count() > 1
+    with trace.span("bulk.prepare"):
+        dens_prob, init = _prepare(store, coverage, txps_name, opts, args,
+                                   device, multi)
     if multi:
         return _multiprocess_inference_and_write(
             store, txps_name, txps_len, opts, args, digest, aln_time_s,
@@ -255,92 +273,105 @@ def perform_inference_and_write_output(
     T = len(txps_name)
     squarem = args.em_accel == "squarem"
     read_order = None
-    if impl == "v4":
-        if dtype != torch.float32:
-            # as in the JAX package, the routed iteration is an f32 program
-            log.info("--em-impl v4 runs in float32 (--em-dtype %s ignored)",
-                     args.em_dtype)
-            dtype = torch.float32
-        t0 = time.time()
-        try:
-            data, read_order = EmV4Data.build(
+    with trace.span("bulk.route", impl=impl):
+        if impl == "v4":
+            if dtype != torch.float32:
+                # as in the JAX package, the routed iteration is an f32
+                # program
+                log.info("--em-impl v4 runs in float32 (--em-dtype %s "
+                         "ignored)", args.em_dtype)
+                dtype = torch.float32
+            t0 = time.time()
+            try:
+                data, read_order = EmV4Data.build(
+                    store.txp_id,
+                    combined_weights(store, opts.model_coverage, dens_prob),
+                    store.boundaries, T, dtype=dtype, device=device,
+                    pre=pre, prefetch=plan_hint[0], pointer_key=plan_hint[1],
+                )
+            except ValueError as e:
+                raise ValueError(
+                    f"--em-impl v4 cannot route these "
+                    f"{store.num_alignments} alignments ({e}); use "
+                    f"--em-impl pallas"
+                ) from e
+            log.info("v4 routing built in %.1fs", time.time() - t0)
+            log.info("v4 layout: %d big transcripts, %s middle", data.n_big,
+                     "fused" if data.seg_id is not None else "unfused")
+            run = run_em_v4_squarem if squarem else run_em_v4
+        elif impl == "v3":
+            t0 = time.time()
+            with trace.span("v3.build") as build:
+                try:
+                    data, read_order = EmV3Data.build(
+                        store.txp_id,
+                        combined_weights(store, opts.model_coverage,
+                                         dens_prob),
+                        store.boundaries, T, dtype=dtype, device=device,
+                    )
+                except ValueError as e:
+                    raise ValueError(
+                        f"--em-impl v3 cannot route these "
+                        f"{store.num_alignments} alignments ({e}); use "
+                        f"--em-impl pallas"
+                    ) from e
+            log.info("v3 routing built in %.1fs (%s)", time.time() - t0,
+                     ", ".join(f"{k} {v:.2f}s" for k, v in build.laps.items()))
+            log.info("v3 layout: NPAD %d, %d chunks, Q %d / %d, R1 %d / %d, "
+                     "R3 %d / %d", data.npad, data.p1.n_src, data.p1.Q,
+                     data.p2.Q, data.p1.R1, data.p2.R1, data.p1.R3,
+                     data.p2.R3)
+            run = run_em_v3_squarem if squarem else run_em_v3
+        elif impl == "segsum":
+            data = build_em_inputs(
+                store, T, opts.model_coverage, dens_prob, dtype, device
+            )
+            run = run_em_squarem if squarem else run_em
+        else:
+            data, _read_order = FastEmData.build(
                 store.txp_id,
                 combined_weights(store, opts.model_coverage, dens_prob),
-                store.boundaries, T, dtype=dtype, device=device,
-                pre=pre, prefetch=plan_hint[0], pointer_key=plan_hint[1],
+                store.boundaries, T, dtype=dtype,
+                use_pallas_gather=(impl == "pallas"), device=device,
             )
-        except ValueError as e:
-            raise ValueError(
-                f"--em-impl v4 cannot route these {store.num_alignments} "
-                f"alignments ({e}); use --em-impl pallas"
-            ) from e
-        log.info("v4 routing built in %.1fs", time.time() - t0)
-        log.info("v4 layout: %d big transcripts, %s middle", data.n_big,
-                 "fused" if data.seg_id is not None else "unfused")
-        run = run_em_v4_squarem if squarem else run_em_v4
-    elif impl == "v3":
-        t0 = time.time()
-        build_s: dict = {}
-        try:
-            data, read_order = EmV3Data.build(
-                store.txp_id,
-                combined_weights(store, opts.model_coverage, dens_prob),
-                store.boundaries, T, dtype=dtype, device=device,
-                timings=build_s,
-            )
-        except ValueError as e:
-            raise ValueError(
-                f"--em-impl v3 cannot route these {store.num_alignments} "
-                f"alignments ({e}); use --em-impl pallas"
-            ) from e
-        log.info("v3 routing built in %.1fs (%s)", time.time() - t0,
-                 ", ".join(f"{k} {v:.2f}s" for k, v in build_s.items()))
-        log.info("v3 layout: NPAD %d, %d chunks, Q %d / %d, R1 %d / %d, "
-                 "R3 %d / %d", data.npad, data.p1.n_src, data.p1.Q,
-                 data.p2.Q, data.p1.R1, data.p2.R1, data.p1.R3, data.p2.R3)
-        run = run_em_v3_squarem if squarem else run_em_v3
-    elif impl == "segsum":
-        data = build_em_inputs(
-            store, T, opts.model_coverage, dens_prob, dtype, device
-        )
-        run = run_em_squarem if squarem else run_em
-    else:
-        data, _read_order = FastEmData.build(
-            store.txp_id,
-            combined_weights(store, opts.model_coverage, dens_prob),
-            store.boundaries, T, dtype=dtype,
-            use_pallas_gather=(impl == "pallas"), device=device,
-        )
-        run = run_em_fast_squarem if squarem else run_em_fast
-    init_t = initial_abundances(data, init, dtype)
+            run = run_em_fast_squarem if squarem else run_em_fast
+        init_t = initial_abundances(data, init, dtype)
 
     t0 = time.time()
-    counts_t, niter_t = run(
-        data, init_t, args.max_em_iter, args.convergence_thresh
-    )
-    counts = counts_t.double().cpu().numpy()
-    niter = int(niter_t)
+    # the span ends after the `.cpu()` that waits for the device
+    with trace.span("bulk.em", LAUNCHES, impl=impl) as em:
+        counts_t, niter_t = run(
+            data, init_t, args.max_em_iter, args.convergence_thresh
+        )
+        counts = counts_t.double().cpu().numpy()
+        niter = int(niter_t)
+        em.set(iters=niter, msteps=niter + 1)
     log.info(
         "%s EM on %s (%s) converged after %d iterations in %.3fs",
         impl, device, str(dtype).replace("torch.", ""), niter,
         time.time() - t0,
     )
 
-    unique, total = get_aux_counts(store, T)
-    info = get_json_info(args, opts, store.discard, digest, aln_time_s)
-    write_output(args.output, info, txps_name, txps_len, counts, unique, total)
+    with trace.span("bulk.write.quant"):
+        unique, total = get_aux_counts(store, T)
+        info = get_json_info(args, opts, store.discard, digest, aln_time_s)
+        write_output(args.output, info, txps_name, txps_len, counts, unique,
+                     total)
 
     if args.num_bootstraps > 0:
         t0 = time.time()
-        rng = np.random.default_rng(args.seed)
-        # read multiplicities are exchangeable, so the fast layout's
-        # relabeled read order takes the draw as it comes; the v4 layout
-        # takes it per padded bucket row (both as the JAX package does)
-        mult = bootstrap_ops.sample_multiplicities(
-            rng, args.num_bootstraps, store.num_reads
-        )
-        if read_order is not None:
-            mult = mult[:, read_order]
+        with trace.span("boot.draw", replicates=args.num_bootstraps,
+                        reads=store.num_reads):
+            rng = np.random.default_rng(args.seed)
+            # read multiplicities are exchangeable, so the fast layout's
+            # relabeled read order takes the draw as it comes; the v4
+            # layout takes it per padded bucket row (both as the JAX
+            # package does)
+            mult = bootstrap_ops.sample_multiplicities(
+                rng, args.num_bootstraps, store.num_reads
+            )
+            if read_order is not None:
+                mult = mult[:, read_order]
         if impl == "v3":
             # no batch arm: one replicate after another, as in the JAX
             # package
@@ -367,9 +398,11 @@ def perform_inference_and_write_output(
             time.time() - t0,
             boot_iters.tolist(),
         )
-        write_infrep_file(args.output, breps)
+        with trace.span("bulk.write.infreps"):
+            write_infrep_file(args.output, breps)
 
-    write_probs(args, args.output, store, counts, txps_name, opts)
+    with trace.span("bulk.write.probs"):
+        write_probs(args, args.output, store, counts, txps_name, opts)
 
     # a plan stored by this run is on disk before the process ends
     plan_cache.wait_for_stores()
@@ -412,17 +445,19 @@ def _sharded_inference_and_write(
     breps = None
     t0 = time.time()
     if v4:
-        try:
-            sh, mesh = build_sharded_v4(
-                store.txp_id, w, store.boundaries, T, devices=devices,
-                num_shards=args.num_shards, dtype=dtype,
-            )
-        except ValueError as e:
-            raise ValueError(
-                f"sharded --em-impl v4 cannot route these "
-                f"{store.num_alignments} alignments over {args.num_shards} "
-                f"shards ({e}); use fewer shards or --em-impl segsum"
-            ) from e
+        with trace.span("bulk.route", impl="v4", shards=args.num_shards):
+            try:
+                sh, mesh = build_sharded_v4(
+                    store.txp_id, w, store.boundaries, T, devices=devices,
+                    num_shards=args.num_shards, dtype=dtype,
+                )
+            except ValueError as e:
+                raise ValueError(
+                    f"sharded --em-impl v4 cannot route these "
+                    f"{store.num_alignments} alignments over "
+                    f"{args.num_shards} shards ({e}); use fewer shards or "
+                    f"--em-impl segsum"
+                ) from e
         log.info("sharded v4 routing built in %.1fs (%d shards, layouts "
                  "%.1fs)", time.time() - t0, sh.num_shards, sh.layout_s)
         log.info("v4 layout: %d big transcripts, %s middle",
@@ -431,9 +466,12 @@ def _sharded_inference_and_write(
         run = make_sharded_v4_runner(mesh, args.max_em_iter,
                                      accel=args.em_accel)
         t0 = time.time()
-        init_t = torch.as_tensor(init_arr, device=mesh.devices[0]).to(dtype)
-        counts_t, niter = run(sh, init_t, args.convergence_thresh)
-        counts = counts_t.double().cpu().numpy()
+        with trace.span("bulk.em", LAUNCHES, impl="sharded-v4") as em:
+            init_t = torch.as_tensor(init_arr,
+                                     device=mesh.devices[0]).to(dtype)
+            counts_t, niter = run(sh, init_t, args.convergence_thresh)
+            counts = counts_t.double().cpu().numpy()
+            em.set(iters=int(niter), msteps=int(niter) + 1)
         log.info("sharded-v4 EM on %s (%s) converged after %d iterations "
                  "in %.3fs", device, str(dtype).replace("torch.", ""),
                  int(niter), time.time() - t0)
@@ -452,13 +490,15 @@ def _sharded_inference_and_write(
                      args.num_bootstraps, time.time() - t0,
                      boot_iters.tolist())
     else:
-        counts, niter = sharded_em(
-            store.txp_id, w, store.boundaries, T, init_arr,
-            max_iter=args.max_em_iter,
-            convergence_thresh=args.convergence_thresh, dtype=dtype,
-            devices=devices, num_shards=args.num_shards,
-            accel=args.em_accel,
-        )
+        with trace.span("bulk.em", impl="sharded-segsum") as em:
+            counts, niter = sharded_em(
+                store.txp_id, w, store.boundaries, T, init_arr,
+                max_iter=args.max_em_iter,
+                convergence_thresh=args.convergence_thresh, dtype=dtype,
+                devices=devices, num_shards=args.num_shards,
+                accel=args.em_accel,
+            )
+            em.set(iters=niter, msteps=niter + 1)
         log.info("sharded EM on %s (%s) converged after %d iterations in "
                  "%.3fs", device, str(dtype).replace("torch.", ""), niter,
                  time.time() - t0)
@@ -492,15 +532,15 @@ def _multiprocess_inference_and_write(
     w = combined_weights(store, opts.model_coverage, dens_prob)
     init_arr = host_init(init, T, store.num_reads)
     mesh = global_data_mesh(device)
-    t0 = time.time()
-    calls0, wait0 = all_reduce_stats["calls"], all_reduce_stats["seconds"]
-    counts, niter = sharded_em_global(
-        store.txp_id, w, store.boundaries, T, init_arr,
-        max_iter=args.max_em_iter,
-        convergence_thresh=args.convergence_thresh,
-        dtype=dtype, mesh=mesh, accel=args.em_accel,
-    )
-    log_multiprocess_em(mesh, "", niter, time.time() - t0, calls0, wait0)
+    with trace.span("bulk.em", ALLREDUCES, impl="multiprocess") as em:
+        counts, niter = sharded_em_global(
+            store.txp_id, w, store.boundaries, T, init_arr,
+            max_iter=args.max_em_iter,
+            convergence_thresh=args.convergence_thresh,
+            dtype=dtype, mesh=mesh, accel=args.em_accel,
+        )
+        em.set(iters=niter, msteps=niter + 1)
+    log_multiprocess_em(mesh, "", niter, em)
     if process_index() != 0:
         return counts
     unique, total = get_aux_counts(store, T)
@@ -512,9 +552,9 @@ def _multiprocess_inference_and_write(
         # a 2,000,000-read CSR took 22 s as one batch on one H100, 8 single
         # runs 18 s, the main EM of 2 processes 4-5 s
         t0 = time.time()
-        data = build_em_inputs(store, T, opts.model_coverage, dens_prob,
-                               dtype, device)
-        inputs_s = time.time() - t0
+        with trace.span("bulk.route", impl="segsum") as inputs:
+            data = build_em_inputs(store, T, opts.model_coverage, dens_prob,
+                                   dtype, device)
         breps = bootstrap_ops.bootstrap(
             data, args.num_bootstraps,
             max_iter=args.max_em_iter,
@@ -524,20 +564,20 @@ def _multiprocess_inference_and_write(
             accel=args.em_accel,
         )
         log.info("%d bootstrap replicates on process 0 in %.3fs (inputs "
-                 "%.3fs)", args.num_bootstraps, time.time() - t0, inputs_s)
+                 "%.3fs)", args.num_bootstraps, time.time() - t0,
+                 inputs.seconds)
         write_infrep_file(args.output, np.asarray(breps))
     write_probs(args, args.output, store, counts, txps_name, opts)
     return counts
 
 
-def log_multiprocess_em(mesh, ingest: str, niter: int, seconds: float,
-                        calls0: int, wait0: float) -> None:
+def log_multiprocess_em(mesh, ingest: str, niter: int,
+                        em: trace.Span) -> None:
     log.info(
         "multi-process EM (%d processes, %d shards%s) converged after %d "
         "iterations in %.3fs; %d all-reduces, %.3fs in them",
-        mesh.num_processes, mesh.num_shards, ingest, niter, seconds,
-        all_reduce_stats["calls"] - calls0,
-        all_reduce_stats["seconds"] - wait0,
+        mesh.num_processes, mesh.num_shards, ingest, niter, em.seconds,
+        em.attrs["allreduces"], em.attrs["allreduce_s"],
     )
 
 
@@ -565,17 +605,17 @@ def _sharded_input_inference_and_write(
     )
     init_arr = host_init(init, T, r_global)
     mesh = global_data_mesh(device)
-    t0 = time.time()
-    calls0, wait0 = all_reduce_stats["calls"], all_reduce_stats["seconds"]
-    counts, niter = sharded_em_global_local(
-        store.txp_id, w, store.boundaries, T, init_arr,
-        max_iter=args.max_em_iter,
-        convergence_thresh=args.convergence_thresh,
-        dtype=dtype, mesh=mesh, accel=args.em_accel,
-    )
+    with trace.span("bulk.em", ALLREDUCES, impl="multiprocess") as em:
+        counts, niter = sharded_em_global_local(
+            store.txp_id, w, store.boundaries, T, init_arr,
+            max_iter=args.max_em_iter,
+            convergence_thresh=args.convergence_thresh,
+            dtype=dtype, mesh=mesh, accel=args.em_accel,
+        )
+        em.set(iters=niter, msteps=niter + 1)
     log_multiprocess_em(
         mesh, f", sharded ingest: {store.num_reads}/{r_global} local reads",
-        niter, time.time() - t0, calls0, wait0)
+        niter, em)
 
     # reduce the write-side statistics across processes (tiny)
     unique_l, total_l = get_aux_counts(store, T)
@@ -635,11 +675,21 @@ def filter_fingerprint(opts: FilterOpts) -> str:
 
 
 def quantify_bulk_alignments_from_bam(args: Args, opts: FilterOpts) -> np.ndarray:
-    """Alignment-mode entry (`bulk.rs:212-259`)."""
-    from ..host.packer import pack_bam_fast
+    """Alignment-mode entry (`bulk.rs:212-259`): one job, the span
+    `bulk.job` (`utils/trace.py`), its first phase `bulk.ingest`."""
+    with trace.job("bulk.job"):
+        # fail before the pack, not after it
+        resolve_device(args.device)
+        with trace.span("bulk.ingest"):
+            ingest = _ingest(args, opts)
+        return perform_inference_and_write_output(*ingest)
 
-    # fail before the pack, not after it
-    resolve_device(args.device)
+
+def _ingest(args: Args, opts: FilterOpts):
+    """The BAM into the CSR (the span `bulk.pack`) and the v4 layout's
+    prebuild finished (`prebuild.finish`); returns the arguments of
+    `perform_inference_and_write_output`."""
+    from ..host.packer import pack_bam_fast
 
     # Hide the v4 layout's A-sized pre-work behind the streaming pack: a
     # V4Prebuild thread takes the filtered CSR chunks as they land. Where
@@ -676,50 +726,36 @@ def quantify_bulk_alignments_from_bam(args: Args, opts: FilterOpts) -> np.ndarra
                 prebuilder.observe(packed)
 
     t0 = time.time()
-    pack_timings: dict = {}
     try:
-        header, store, coverage, _num_unmapped = pack_bam_fast(
-            args.alignments,
-            opts,
-            bin_width=args.bin_width,
-            # all threads go to the decoder: its pipeline mode overlaps
-            # the consumer phases itself
-            threads=max(args.threads, 1),
-            sort_check_num=args.sort_check_num,
-            keep_names=opts.write_assignment_probs,
-            timings=pack_timings,
-            chunk_observer=observer,
-        )
+        # the packer gives the span its timings as attributes
+        with trace.span("bulk.pack"):
+            header, store, coverage, _num_unmapped = pack_bam_fast(
+                args.alignments,
+                opts,
+                bin_width=args.bin_width,
+                # all threads go to the decoder: its pipeline mode
+                # overlaps the consumer phases itself
+                threads=max(args.threads, 1),
+                sort_check_num=args.sort_check_num,
+                keep_names=opts.write_assignment_probs,
+                chunk_observer=observer,
+            )
     except BaseException:
         if prebuilder is not None:
             prebuilder.abort()
         raise
     if prebuilder is not None:
         prefetch = pf_box[0]
-    log.info("phase bulk.pack %s", " ".join(
-        f"{k}={v:.3f}" if isinstance(v, float) else f"{k}={v}"
-        for k, v in pack_timings.items()))
     verify_header(header, args.alignments)
     txps_name = header.ref_names
     txps_len = np.asarray(header.ref_lengths, dtype=np.int64)
     log.info("parsed reference information for %d transcripts.", len(txps_name))
     digest = {"bam_digest": LazyDigest(digest_from_header, txps_name, txps_len)}
-    t_pb = time.time()
-    pre = prebuilder.finish(len(txps_name)) if prebuilder else None
-    if os.environ.get("OARFISH_PHASE_TIMING"):
-        log.info("phase prebuild.finish %.3fs", time.time() - t_pb)
+    pre = None
+    if prebuilder is not None:
+        with trace.span("prebuild.finish"):
+            pre = prebuilder.finish(len(txps_name))
     aln_time_s = time.time() - t0
     log.info("Parsing of alignments from input took %.3fs", aln_time_s)
-
-    return perform_inference_and_write_output(
-        store,
-        coverage,
-        txps_name,
-        txps_len,
-        opts,
-        args,
-        digest,
-        aln_time_s,
-        pre=pre,
-        plan_hint=(prefetch, pointer_key),
-    )
+    return (store, coverage, txps_name, txps_len, opts, args, digest,
+            aln_time_s, pre, (prefetch, pointer_key))

@@ -56,6 +56,7 @@ from ..io.bam import BamReader, BamRecord, verify_header
 from ..models.coverage import binomial_continuous_prob, normalize_read_probs
 from ..ops.em import EmData, _m_step, em_loop, finish_em, squarem_em
 from ..ops.em_dense import DenseCellEm, run_em_dense_scan
+from ..utils import trace
 from ..utils.digest import (
     LazyDigest,
     digest_from_header,
@@ -230,25 +231,25 @@ class CellBatch:
         cell (cell index, global transcript ids, counts) in bucket order,
         on the host. Each part's counts cross to the host once, at the
         end."""
-        t0 = time.perf_counter()
         B = len(self.cell_index)
         D = min(len(devices), B)
         cuts = [(B * d) // D for d in range(D + 1)]
         counts, subs = [], []
         impl = sc_impl(devices[0])
-        for d in range(D):
-            part = self if D == 1 else self.part(cuts[d], cuts[d + 1])
-            if impl == "dense":
-                c, sub = part._run_dense(args, dtype, devices[d])
-            else:
-                c, sub = part._run_segsum(args, dtype, devices[d])
-            counts.append(c.double().cpu().numpy())
-            subs.append((len(part.cell_index), sub))
+        with trace.span("cells.bucket", cells=B, impl=impl) as bucket:
+            for d in range(D):
+                part = self if D == 1 else self.part(cuts[d], cuts[d + 1])
+                if impl == "dense":
+                    c, sub = part._run_dense(args, dtype, devices[d])
+                else:
+                    c, sub = part._run_segsum(args, dtype, devices[d])
+                counts.append(c.double().cpu().numpy())
+                subs.append((len(part.cell_index), sub))
         counts = np.concatenate(counts)
         n_sub = sum(-(-n // sub) for n, sub in subs)
         log.info("sc bucket %s: %d cells, %s, %d sub-batches of at most "
                  "%d, %.3fs", self.key, B, impl, n_sub,
-                 max(sub for _, sub in subs), time.perf_counter() - t0)
+                 max(sub for _, sub in subs), bucket.seconds)
         return [
             (self.cell_index[i], self.global_ids[i],
              counts[i, : len(self.global_ids[i])])
@@ -453,52 +454,52 @@ def _quantify_single_cell_native(args: Args, opts: FilterOpts, device,
     T = len(txps_name)
     digest = {"bam_digest": LazyDigest(digest_from_header, txps_name, txps_len)}
 
-    t_start = time.time()
-    barcodes: List[str] = []
-    buckets: Dict[Tuple[int, int, int], CellBatch] = {}
-    num_cells = 0
-    skipped_empty = 0
-    reads = 0
-    prog = Progress("packing cells", unit="cells")
-    for bc, cell in cell_iter:
-        prog.update()
-        barcodes.append(bc)
-        idx_cell = num_cells
-        num_cells += 1
-        if cell is None:
-            skipped_empty += 1
-            continue
-        txp, start, end, prob, b = cell
-        if opts.model_coverage:
-            # per-cell binomial coverage model over the retained
-            # alignments (the reference builds a fresh per-cell model,
-            # `single_cell.rs:132-137`); slices are post-filter so the
-            # bins match the streaming path exactly
-            cov = TranscriptCoverage(txps_len, args.bin_width)
-            cov.add_intervals(txp, start, end)
-            cell_store = AlignmentStore(
-                txp_id=txp.astype(np.int32), start=start, end=end,
-                as_prob=prob.astype(np.float32),
-                cov_prob=np.zeros(len(txp)), boundaries=b,
-                discard=DiscardTable(),
-            )
-            flat = binomial_continuous_prob(cov)
-            normalize_read_probs(cell_store, cov, flat, args.bin_width)
-            w = cell_store.as_prob.astype(np.float64) * cell_store.cov_prob
-        else:
-            w = prob.astype(np.float64)
-        n_reads = len(b) - 1
-        reads += n_reads
-        rid = np.repeat(np.arange(n_reads, dtype=np.int32), np.diff(b))
-        _add_cell(buckets, T, idx_cell, txp, w, rid, n_reads)
-        if num_cells % 100 == 0:
-            log.info("Processed %d cells.", num_cells)
+    with trace.span("sc.parse") as parse:
+        barcodes: List[str] = []
+        buckets: Dict[Tuple[int, int, int], CellBatch] = {}
+        num_cells = 0
+        skipped_empty = 0
+        reads = 0
+        prog = Progress("packing cells", unit="cells")
+        for bc, cell in cell_iter:
+            prog.update()
+            barcodes.append(bc)
+            idx_cell = num_cells
+            num_cells += 1
+            if cell is None:
+                skipped_empty += 1
+                continue
+            txp, start, end, prob, b = cell
+            if opts.model_coverage:
+                # per-cell binomial coverage model over the retained
+                # alignments (the reference builds a fresh per-cell model,
+                # `single_cell.rs:132-137`); slices are post-filter so the
+                # bins match the streaming path exactly
+                cov = TranscriptCoverage(txps_len, args.bin_width)
+                cov.add_intervals(txp, start, end)
+                cell_store = AlignmentStore(
+                    txp_id=txp.astype(np.int32), start=start, end=end,
+                    as_prob=prob.astype(np.float32),
+                    cov_prob=np.zeros(len(txp)), boundaries=b,
+                    discard=DiscardTable(),
+                )
+                flat = binomial_continuous_prob(cov)
+                normalize_read_probs(cell_store, cov, flat, args.bin_width)
+                w = cell_store.as_prob.astype(np.float64) * cell_store.cov_prob
+            else:
+                w = prob.astype(np.float64)
+            n_reads = len(b) - 1
+            reads += n_reads
+            rid = np.repeat(np.arange(n_reads, dtype=np.int32), np.diff(b))
+            _add_cell(buckets, T, idx_cell, txp, w, rid, n_reads)
+            if num_cells % 100 == 0:
+                log.info("Processed %d cells.", num_cells)
 
-    prog.close()
-    return _finish_single_cell(
-        args, buckets, barcodes, num_cells, skipped_empty, reads, t_start,
-        txps_name, digest, dtype, device,
-    )
+        prog.close()
+        buckets = _parsed(buckets, num_cells, skipped_empty, reads,
+                          parse)
+    return _finish_single_cell(args, buckets, barcodes, num_cells,
+                               txps_name, digest, dtype, device)
 
 
 def _quantify_single_cell_streaming(args: Args, opts: FilterOpts, device,
@@ -512,42 +513,44 @@ def _quantify_single_cell_streaming(args: Args, opts: FilterOpts, device,
     T = len(txps_name)
     digest = {"bam_digest": LazyDigest(digest_from_header, txps_name, txps_len)}
 
-    t_start = time.time()
-    barcodes: List[str] = []
-    buckets: Dict[Tuple[int, int, int], CellBatch] = {}
-    num_cells = 0
-    skipped_empty = 0
-    reads = 0
+    with trace.span("sc.parse") as parse:
+        barcodes: List[str] = []
+        buckets: Dict[Tuple[int, int, int], CellBatch] = {}
+        num_cells = 0
+        skipped_empty = 0
+        reads = 0
 
-    prog = Progress("packing cells", unit="cells")
-    for barcode, records in iter_barcode_groups(reader.records()):
-        prog.update()
-        store, coverage = build_cell_store(records, txps_len, opts, args.bin_width)
-        barcodes.append(barcode.decode("ascii", "replace"))
-        if store.num_reads == 0:
-            # the reference still runs the EM (yielding all-zero counts) and
-            # writes the barcode row; we record the barcode with no entries
+        prog = Progress("packing cells", unit="cells")
+        for barcode, records in iter_barcode_groups(reader.records()):
+            prog.update()
+            store, coverage = build_cell_store(records, txps_len, opts,
+                                               args.bin_width)
+            barcodes.append(barcode.decode("ascii", "replace"))
+            if store.num_reads == 0:
+                # the reference still runs the EM (yielding all-zero
+                # counts) and writes the barcode row; we record the
+                # barcode with no entries
+                num_cells += 1
+                skipped_empty += 1
+                continue
+            if opts.model_coverage:
+                flat = binomial_continuous_prob(coverage)
+                normalize_read_probs(store, coverage, flat, args.bin_width)
+                w = store.as_prob.astype(np.float64) * store.cov_prob
+            else:
+                w = store.as_prob.astype(np.float64)
+            reads += store.num_reads
+            _add_cell(buckets, T, num_cells, store.txp_id, w, store.read_ids(),
+                      store.num_reads)
             num_cells += 1
-            skipped_empty += 1
-            continue
-        if opts.model_coverage:
-            flat = binomial_continuous_prob(coverage)
-            normalize_read_probs(store, coverage, flat, args.bin_width)
-            w = store.as_prob.astype(np.float64) * store.cov_prob
-        else:
-            w = store.as_prob.astype(np.float64)
-        reads += store.num_reads
-        _add_cell(buckets, T, num_cells, store.txp_id, w, store.read_ids(),
-                  store.num_reads)
-        num_cells += 1
-        if num_cells % 100 == 0:
-            log.info("Processed %d cells.", num_cells)
+            if num_cells % 100 == 0:
+                log.info("Processed %d cells.", num_cells)
 
-    prog.close()
-    return _finish_single_cell(
-        args, buckets, barcodes, num_cells, skipped_empty, reads, t_start,
-        txps_name, digest, dtype, device,
-    )
+        prog.close()
+        buckets = _parsed(buckets, num_cells, skipped_empty, reads,
+                          parse)
+    return _finish_single_cell(args, buckets, barcodes, num_cells,
+                               txps_name, digest, dtype, device)
 
 
 def cell_devices(args: Args, device: torch.device) -> list:
@@ -563,45 +566,55 @@ def cell_devices(args: Args, device: torch.device) -> list:
     return [torch.device("cuda", i) for i in range(D)]
 
 
-def _finish_single_cell(args, buckets, barcodes, num_cells, skipped_empty,
-                        reads, t_start, txps_name, digest, dtype, device):
-    devices = cell_devices(args, device)
+def _parsed(buckets, num_cells, skipped_empty, reads, parse: trace.Span):
+    """The buckets of the span `parse` coarsened, and its log line."""
     n_raw = len(buckets)
     buckets = coarsen_buckets(buckets)
     log.info(
         "parsed %d cells (%d with no surviving alignments, %d reads kept) "
         "in %s; %d size buckets (%d before coarsening)",
-        num_cells, skipped_empty, reads, humantime(time.time() - t_start),
+        num_cells, skipped_empty, reads, humantime(time.time() - parse.start),
         len(buckets), n_raw,
     )
-    log.info("phase sc.parse %.3f", time.time() - t_start)
+    return buckets
 
+
+def _finish_single_cell(args, buckets, barcodes, num_cells, txps_name,
+                        digest, dtype, device):
+    """The cells' EMs (the span `sc.em`) and the writers (`sc.write`)."""
+    devices = cell_devices(args, device)
     row_parts: List[np.ndarray] = []
     col_parts: List[np.ndarray] = []
     val_parts: List[np.ndarray] = []
-    t_em = time.time()
-    # one bucket at a time, in sorted-key order: each bucket's device
-    # tensors are freed before the next bucket is built
-    for key in sorted(buckets):
-        for cell_index, gids, counts in buckets.pop(key).run(
-                args, dtype, devices):
-            nz = counts > 0.0
-            n = int(np.count_nonzero(nz))
-            if n == 0:
-                continue
-            row_parts.append(np.full(n, cell_index, dtype=np.int64))
-            col_parts.append(np.asarray(gids[nz], dtype=np.int64))
-            val_parts.append(counts[nz].astype(np.float32))
-    empty64 = np.empty(0, np.int64)
-    rows = np.concatenate(row_parts) if row_parts else empty64
-    cols = np.concatenate(col_parts) if col_parts else empty64
-    vals = (np.concatenate(val_parts) if val_parts
-            else np.empty(0, np.float32))
+    with trace.span("sc.em") as em:
+        # one bucket at a time, in sorted-key order: each bucket's device
+        # tensors are freed before the next bucket is built
+        for key in sorted(buckets):
+            for cell_index, gids, counts in buckets.pop(key).run(
+                    args, dtype, devices):
+                nz = counts > 0.0
+                n = int(np.count_nonzero(nz))
+                if n == 0:
+                    continue
+                row_parts.append(np.full(n, cell_index, dtype=np.int64))
+                col_parts.append(np.asarray(gids[nz], dtype=np.int64))
+                val_parts.append(counts[nz].astype(np.float32))
+        empty64 = np.empty(0, np.int64)
+        rows = np.concatenate(row_parts) if row_parts else empty64
+        cols = np.concatenate(col_parts) if col_parts else empty64
+        vals = (np.concatenate(val_parts) if val_parts
+                else np.empty(0, np.float32))
     log.info("ran %d cell EMs on %s (%s) in %s", num_cells, device,
-             str(dtype).replace("torch.", ""), humantime(time.time() - t_em))
-    log.info("phase sc.em %.3f", time.time() - t_em)
-    t_wr = time.time()
+             str(dtype).replace("torch.", ""), humantime(em.seconds))
 
+    with trace.span("sc.write"):
+        _write(args, txps_name, barcodes, rows, cols, vals, num_cells,
+               digest)
+    return num_cells
+
+
+def _write(args, txps_name, barcodes, rows, cols, vals, num_cells,
+           digest) -> None:
     info = {
         "prob_model": "logistic_coverage" if args.model_coverage else "no_coverage",
         "bin_width": args.bin_width,
@@ -627,5 +640,3 @@ def _finish_single_cell(args, buckets, barcodes, num_cells, skipped_empty,
         np.asarray(vals, dtype=np.float32),
         num_cells,
     )
-    log.info("phase sc.write %.3f", time.time() - t_wr)
-    return num_cells

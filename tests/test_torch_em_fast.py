@@ -25,6 +25,7 @@ from oarfish_tpu.ops.em_oracle import do_em_oracle
 from oarfish_tpu_torch.ops import em as tem
 from oarfish_tpu_torch.ops import em_fast as tfast
 from oarfish_tpu_torch.ops.convert import fast_em_data_from_numpy
+from oarfish_tpu_torch.utils import trace
 from test_torch_em import random_csr
 from util_torch import one_torch_thread  # noqa: F401 (autouse fixture)
 
@@ -258,9 +259,9 @@ def test_pallas_impl_on_card_matches_plain_indexing(dtype):
         device="cuda")
     without, _ = tfast.FastEmData.build(
         txp_id, w, boundaries, T, dtype=dtype, device="cuda")
-    before = tg.launch_count
+    before = trace.counter("launch.sorted_gather")
     a, na = tfast.run_em_fast(with_k, tem.uniform_init(with_k, dtype), 100, 1e-3)
-    assert tg.launch_count == before + int(na) + 1
+    assert trace.counter("launch.sorted_gather") == before + int(na) + 1
     a2, _ = tfast.run_em_fast(with_k, tem.uniform_init(with_k, dtype), 100, 1e-3)
     assert torch.equal(a, a2)  # bit-reproducible
     b, nb = tfast.run_em_fast(without, tem.uniform_init(without, dtype), 100, 1e-3)
@@ -277,8 +278,6 @@ def test_sparse_input_on_card_keeps_the_plan_and_launches_the_kernel(dtype):
     m-step and agree with torch indexing."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    from oarfish_tpu_torch.ops import sorted_gather as tg
-
     rng = np.random.default_rng(2)
     tiny = (np.array([5, 50_000, 99_999], dtype=np.int32), np.ones(3),
             np.array([0, 1, 2, 3], dtype=np.int64), 100_000)
@@ -292,10 +291,10 @@ def test_sparse_input_on_card_keeps_the_plan_and_launches_the_kernel(dtype):
         assert with_k.g_rows * 128 > 4 * A + tfast.TILE  # the CPU rule's case
         without, _ = tfast.FastEmData.build(
             txp_id, w, boundaries, T, dtype=dtype, device="cuda")
-        before = tg.launch_count
+        before = trace.counter("launch.sorted_gather")
         a, na = tfast.run_em_fast(
             with_k, tem.uniform_init(with_k, dtype), 100, 1e-3)
-        assert tg.launch_count == before + int(na) + 1
+        assert trace.counter("launch.sorted_gather") == before + int(na) + 1
         b, nb = tfast.run_em_fast(
             without, tem.uniform_init(without, dtype), 100, 1e-3)
         assert int(na) == int(nb)

@@ -44,8 +44,8 @@ from oarfish_tpu_torch.ops import em as tem
 from oarfish_tpu_torch.ops import em_v3 as tv3
 from oarfish_tpu_torch.ops import sorted_gather as sg
 from oarfish_tpu_torch.ops import static_permute as tsp
-from oarfish_tpu_torch.ops import tile_permute as tp
 from oarfish_tpu_torch.quant.bulk import perform_inference_and_write_output
+from oarfish_tpu_torch.utils import trace
 from test_em import random_csr
 from util_torch import one_torch_thread  # noqa: F401 (autouse fixture)
 
@@ -144,9 +144,10 @@ def test_global_permute_moves_x_perm_bit_for_bit(v3, name):
     perm = v3["tdbg"]["perm1" if name == "p1" else "perm2"]
     plan = getattr(v3["td"], name)
     x = v3["rng"].normal(size=plan.n_in).astype(np.float32)
-    before = tp.launch_count
+    before = trace.counter("launch.tile_permute")
     got = plan(torch.from_numpy(x))
-    assert tp.launch_count == before  # the plain version on the CPU
+    # the plain version on the CPU
+    assert trace.counter("launch.tile_permute") == before
     np.testing.assert_array_equal(got.numpy(), x[perm])
     want = np.asarray(getattr(v3["jd"], name)(jnp.asarray(x)))
     assert got.numpy().tobytes() == want.tobytes()
@@ -228,12 +229,14 @@ def test_bulk_tail_v3_on_the_cpu_matches_segsum(v3, tmp_path, caplog):
     for impl in ("v3", "segsum"):
         args = Args(output=tmp_path / impl, em_impl=impl, device="cpu",
                     em_dtype="float64", max_em_iter=ITERS)
-        k1 = sg.launch_count, tp.launch_count
+        k1 = (trace.counter("launch.sorted_gather"),
+              trace.counter("launch.tile_permute"))
         with caplog.at_level("INFO", logger="oarfish_tpu_torch"):
             out[impl] = perform_inference_and_write_output(
                 store, TranscriptCoverage(lens, 0), names, lens,
                 resolve_filters(args), args, {}, 0.0)
-        assert (sg.launch_count, tp.launch_count) == k1
+        assert (trace.counter("launch.sorted_gather"),
+                trace.counter("launch.tile_permute")) == k1
     assert "v3 routing built" in caplog.text
     assert f"v3 EM on cpu (float64) converged after {ITERS}" in caplog.text
     assert np.abs(out["v3"] - out["segsum"]).sum() / R < 1e-9
@@ -253,10 +256,12 @@ def test_v3_m_step_on_the_card_launches_k1_and_k2(v3):
     txp_id, w, boundaries, _ = v3["csr"]
     cd, _ = tv3.EmV3Data.build(txp_id, w, boundaries, T, device="cuda")
     prev = torch.from_numpy(v3["rng"].random(T).astype(np.float32)).cuda()
-    k1, k2 = sg.launch_count, tp.launch_count
+    k1, k2 = (trace.counter("launch.sorted_gather"),
+              trace.counter("launch.tile_permute"))
     got = tv3._m_step_v3(cd, prev, None)
     torch.cuda.synchronize()
-    assert (sg.launch_count - k1, tp.launch_count - k2) == (1, 4)
+    assert (trace.counter("launch.sorted_gather") - k1,
+            trace.counter("launch.tile_permute") - k2) == (1, 4)
     want = tv3._m_step_v3(f32(v3["td"]), prev.cpu(), None)
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5,
                                atol=1e-4)

@@ -37,13 +37,13 @@ from oarfish_tpu.ops import em_v4 as jv4
 from oarfish_tpu_torch.cli import main as torch_main
 from oarfish_tpu_torch.ops import em_v4 as tv4
 from oarfish_tpu_torch.ops import plan_cache
-from oarfish_tpu_torch.ops import route_middle, route_stage, tile_permute
 from oarfish_tpu_torch.ops.convert import (
     ROUTE_META,
     V4_META,
     v4_data_from_jax,
 )
 from oarfish_tpu_torch.ops.static_permute import ROUTE_TABLES
+from oarfish_tpu_torch.utils import trace
 from test_em import random_csr
 from test_torch_static_permute import np_or_none, route_fields, tile_fields
 from util_torch import one_torch_thread  # noqa: F401 (autouse fixture)
@@ -148,14 +148,16 @@ def test_m_step_fused_matches_jax(cases, name, with_mult, monkeypatch):
         c["jd"], jnp.asarray(prev),
         None if mult is None else jnp.asarray(mult)))
     data = c["carried"]
-    before = (tile_permute.launch_count, route_stage.launch_count,
-              route_middle.launch_count)
+    before = (trace.counter("launch.tile_permute"),
+              trace.counter("launch.route_stage"),
+              trace.counter("launch.route_middle"))
     got = tv4._m_step_v4(
         data, ext_space(data, prev),
         None if mult is None else torch.from_numpy(mult))
     # the plain versions ran: nothing was launched
-    assert before == (tile_permute.launch_count, route_stage.launch_count,
-                      route_middle.launch_count)
+    assert before == (trace.counter("launch.tile_permute"),
+                      trace.counter("launch.route_stage"),
+                      trace.counter("launch.route_middle"))
     assert got.shape == (data.t_space,) and not got[T:].any()
     tol = M_STEP_TOL[name]
     np.testing.assert_allclose(got[:T].numpy(), want, rtol=tol, atol=tol)

@@ -114,14 +114,27 @@ def test_no_source_names_a_finished_queue_item():
 def test_kernel_wrappers_take_the_replicate_axis():
     """The wrappers of the route stage and the fused middle document and
     count the replicate-axis arm; their CUDA sources have it."""
-    from oarfish_tpu_torch.ops import route_middle, route_stage
+    from oarfish_tpu_torch.utils import trace
 
-    for module in (route_stage, route_middle):
-        assert isinstance(module.launch_count, int)
-        assert isinstance(module.replicate_launch_count, int)
+    for kernel in ("route_stage", "route_middle"):
+        assert isinstance(trace.counter(f"launch.{kernel}"), int)
+        assert isinstance(trace.counter(f"launch.{kernel}.replicate"), int)
     for source in ("route_stage.cu", "route_middle.cu"):
         text = (PKG / "csrc" / source).read_text()
         assert "int B" in text and "Replicate axis" in text, source
+
+
+def test_one_timing_mechanism():
+    """The port times its phases and counts its launches through
+    `utils/trace.py` alone: no function takes a `timings` dict to fill,
+    and no module keeps a launch counter of its own."""
+    timings = re.compile(r"\btimings\s*(:|=[^=])")
+    counter = re.compile(r"^\s*(global\s.*)?\w*launch_count\w*\s*(=|\+=|$)",
+                         re.M)
+    for path in port_sources():
+        text = path.read_text()
+        assert not timings.search(text), (path.name, "timings")
+        assert not counter.search(text), (path.name, "launch_count")
 
 
 def test_import_needs_no_jax_triton_or_compiler(tmp_path):
@@ -164,7 +177,8 @@ def test_every_ported_module_names_its_counterpart():
         if mod is None or Path(mod.__file__).name == "__init__.py":
             continue
         rel = Path(mod.__file__).relative_to(PKG).as_posix()
-        if rel in ("device.py", "kernels/build.py", "ops/convert.py"):
+        if rel in ("device.py", "kernels/build.py", "ops/convert.py",
+                   "utils/trace.py"):
             continue  # new in the port
         if "JAX package" not in (mod.__doc__ or ""):
             missing.append(rel)

@@ -155,7 +155,6 @@ def test_pointer_file_gives_a_prefetch_hit_with_the_same_bytes(
     root, bam = bams
     monkeypatch.setenv("OARFISH_PLAN_CACHE", "1")
     monkeypatch.setenv("OARFISH_PLAN_CACHE_DIR", str(tmp_path / "plans"))
-    monkeypatch.setenv("OARFISH_PHASE_TIMING", "1")
     with caplog.at_level(logging.INFO, logger="oarfish_tpu_torch"):
         first = run_v4(bam, tmp_path / "first")
         assert "prefetching" not in caplog.text

@@ -89,6 +89,22 @@ def test_profiled_outputs_byte_equal(runs, ext):
     assert traced == (runs / f"jax{ext}").read_bytes()
 
 
+def test_profiled_trace_holds_the_spans(runs, tmp_path):
+    """The port's spans (`utils/trace.py`) are ranges on the profiler's
+    host timeline: a traced run with bootstrap replicates holds its
+    ingest, its draw and its batches as CPU events, also under
+    `--quiet`."""
+    assert torch_main(["--alignments", str(runs / "bulk.bam"), *BASE,
+                       "--device", "cpu", "--num-bootstraps", "2", "-o",
+                       str(tmp_path / "out"), "--profile-dir",
+                       str(tmp_path / "trace")]) == 0
+    [found] = traces(tmp_path / "trace")
+    cpu = {e["name"] for e in trace_events(found)
+           if e.get("ph") == "X" and e.get("cat") in ("user_annotation",
+                                                      "cpu_op")}
+    assert {"bulk.job", "bulk.ingest", "boot.draw", "boot.batches"} <= cpu
+
+
 def test_failing_run_raises_as_before_and_leaves_its_trace(tmp_path):
     """A BAM that does not exist: the same error with the option as
     without it, and the trace is written all the same."""

@@ -26,6 +26,7 @@ import torch
 
 from oarfish_tpu.cli import main as jax_main
 from oarfish_tpu_torch.cli import main as torch_main
+from oarfish_tpu_torch.utils import trace
 from util_torch import one_torch_thread  # noqa: F401 (autouse fixture)
 
 REPO = Path(__file__).resolve().parent.parent
@@ -294,16 +295,14 @@ def test_raw_reads_on_the_card_match_the_cpu(world, tmp_path):
     was launched."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from oarfish_tpu_torch.ops import sorted_gather as sg
-
     d = world[0]
     argv = ["--reads", str(d / "reads.fa"), "--annotated",
             str(d / "all.fa"), *SEQ_TECH, "--quiet"]
     assert torch_main(argv + ["-o", str(tmp_path / "cpu"),
                               "--device", "cpu"]) == 0
-    sg.launch_count = 0
+    trace.reset("launch.sorted_gather")
     assert torch_main(argv + ["-o", str(tmp_path / "gpu")]) == 0
-    assert sg.launch_count > 0
+    assert trace.counter("launch.sorted_gather") > 0
 
     def counts(prefix):
         return np.array([float(ln.split("\t")[2]) for ln in

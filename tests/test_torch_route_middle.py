@@ -42,6 +42,7 @@ from oarfish_tpu.constants import EM_DENOM_THRESH
 from oarfish_tpu.ops import static_permute as jsp
 from oarfish_tpu_torch.ops import route_middle as rm
 from oarfish_tpu_torch.ops import static_permute as tsp
+from oarfish_tpu_torch.utils import trace
 from test_torch_static_permute import (
     REPLICATES,
     bits,
@@ -413,7 +414,8 @@ def test_middle_kernel_bit_equal_to_plain_on_card(cr, dtype, max_lvl):
     _skip_without_card()
     fa, fb, lvl, y, mult = card_case(42, cr, dtype, 0, max_lvl)
     a, b = stages(fa, fb)
-    before = rm.launch_count, rm.replicate_launch_count
+    before = (trace.counter("launch.route_middle"),
+              trace.counter("launch.route_middle.replicate"))
     for m in (None, mult):
         for values in (y, fa.quota_view(y)):
             got = rm.route_middle(values, lvl, a, b, THRESH, max_lvl, mult=m)
@@ -421,7 +423,8 @@ def test_middle_kernel_bit_equal_to_plain_on_card(cr, dtype, max_lvl):
             assert torch.equal(
                 got, rm.route_middle_reference(values, lvl, a, b, THRESH,
                                                max_lvl, mult=m))
-    assert (rm.launch_count, rm.replicate_launch_count) == (
+    assert (trace.counter("launch.route_middle"),
+            trace.counter("launch.route_middle.replicate")) == (
         before[0] + 4, before[1])
 
 
@@ -460,7 +463,8 @@ def test_middle_replicate_arm_on_card(cr, dtype, max_lvl):
     B = 3
     fa, fb, lvl, y, mult = card_case(45, cr, dtype, B, max_lvl)
     a, b = stages(fa, fb)
-    before = rm.launch_count, rm.replicate_launch_count
+    before = (trace.counter("launch.route_middle"),
+              trace.counter("launch.route_middle.replicate"))
     for m in (None, mult):
         for values in (y, fa.quota_view(y)):
             got = rm.route_middle(values, lvl, a, b, THRESH, max_lvl, mult=m)
@@ -472,7 +476,8 @@ def test_middle_replicate_arm_on_card(cr, dtype, max_lvl):
         one = rm.route_middle(fa.quota_view(y[i]), lvl, a, b, THRESH,
                               max_lvl, mult=mult[i])
         assert torch.equal(got[i], one)
-    assert (rm.launch_count, rm.replicate_launch_count) == (
+    assert (trace.counter("launch.route_middle"),
+            trace.counter("launch.route_middle.replicate")) == (
         before[0] + 4 + B, before[1] + 4)
     with pytest.raises(ValueError, match="mult"):
         rm.route_middle(y, lvl, a, b, THRESH, max_lvl, mult=mult[0])

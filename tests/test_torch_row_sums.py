@@ -25,6 +25,7 @@ import torch
 from oarfish_tpu.ops.em_v4 import _row_sums as jax_row_sums
 from oarfish_tpu_torch.ops import em_v4 as tv4
 from oarfish_tpu_torch.ops import row_sums as trs
+from oarfish_tpu_torch.utils import trace
 from util_torch import one_torch_thread  # noqa: F401 (autouse fixture)
 
 # (rows_pad, K) of a layout: every width of the read buckets and of the
@@ -177,10 +178,10 @@ def test_kernel_matches_plain_version_on_the_card(dtype, replicates):
     for table in (trs.bucket_table(SHAPES, starts, "cuda"),
                   trs.segment_table(np.array([0, 1, 40, 2100, 30000]), 9,
                                     "cuda")):
-        before = trs.launch_count
+        before = trace.counter("launch.row_sums")
         got = trs.row_sums(x, table)
         torch.cuda.synchronize()
-        assert trs.launch_count == before + 1
+        assert trace.counter("launch.row_sums") == before + 1
         assert torch.equal(got.cpu(), trs.row_sums_reference(x.cpu(), table))
 
 
@@ -487,9 +488,9 @@ def test_tail_kernel_matches_plain_version_on_the_card():
                                 device="cuda")
             want = trs.plan_reference(x.cpu(), plan)
             for _ in range(2):
-                before = trs.launch_count
+                before = trace.counter("launch.row_sums")
                 got = trs.row_sums(x if B > 1 else x[0], plan)
                 torch.cuda.synchronize()
-                assert trs.launch_count == before + 1
+                assert trace.counter("launch.row_sums") == before + 1
                 assert torch.equal(got.cpu(), want if B > 1 else want[0]), (
                     dtype, B)

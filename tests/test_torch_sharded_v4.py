@@ -269,22 +269,22 @@ def test_sharded_v4_on_the_card_launches_every_shard():
     (f32, the same plans) to rtol 1e-5."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from oarfish_tpu_torch.ops import route_middle, route_stage, row_sums
-    from oarfish_tpu_torch.ops import tile_permute
+    from oarfish_tpu_torch.utils import trace
 
     csr = skewed_csr()
     init = np.full(T, R / T)
     sh, mesh = tsv.build_sharded_v4(*csr, T, num_shards=2)
     assert [str(d.device) for d in sh.datas] == ["cuda:0", "cuda:0"]
-    modules = (tile_permute, route_stage, route_middle, row_sums)
-    before = [m.launch_count for m in modules]
+    counters = ("launch.tile_permute", "launch.route_stage",
+                "launch.route_middle", "launch.row_sums")
+    before = [trace.counter(c) for c in counters]
     got, n = tsv.make_sharded_v4_runner(mesh, 20)(
         sh, torch.as_tensor(init, device="cuda").float(), CONV)
     torch.cuda.synchronize()
     fused = sh.datas[0].seg_id is not None
     per_step = (2, 2 if fused else 4, int(fused), 1 + int(not fused))
     steps = int(n) + 1
-    assert [m.launch_count - b for m, b in zip(modules, before)] == [
+    assert [trace.counter(c) - b for c, b in zip(counters, before)] == [
         2 * k * steps for k in per_step]
     cpu, cpu_mesh = tsv.build_sharded_v4(*csr, T, devices=CPU,
                                          num_shards=2)

@@ -26,6 +26,7 @@ import torch
 from oarfish_tpu.ops import gather_pallas as jg
 from oarfish_tpu_torch.ops import sorted_gather as tg
 from oarfish_tpu_torch.ops.convert import gather_plan_from_numpy
+from oarfish_tpu_torch.utils import trace
 from util_torch import one_torch_thread  # noqa: F401 (autouse fixture)
 
 CASES = [
@@ -220,10 +221,10 @@ def test_kernel_bit_equal_to_plain_on_card(dtype, batch):
     shape = (50_000,) if batch is None else (batch, 50_000)
     table = torch.from_numpy(rng.normal(size=shape)).to(dtype).cuda()
     plan = tg.SortedGatherPlan.build(idx, 50_000, device="cuda")
-    before = tg.launch_count
+    before = trace.counter("launch.sorted_gather")
     got = tg.sorted_gather(table, plan)
     torch.cuda.synchronize()
-    assert tg.launch_count == before + 1
+    assert trace.counter("launch.sorted_gather") == before + 1
     assert torch.equal(got, tg.sorted_gather_reference(table, plan))
     # wrong dtype / layout raise instead of running something else
     with pytest.raises(TypeError):

@@ -41,6 +41,7 @@ from oarfish_tpu_torch.ops.convert import (
     route_plan_from_numpy,
     tile_permute_from_numpy,
 )
+from oarfish_tpu_torch.utils import trace
 from util_torch import one_torch_thread  # noqa: F401 (autouse fixture)
 
 LANES = 128
@@ -529,10 +530,10 @@ def test_tile_permute_kernel_bit_equal_to_plain_on_card(dtype):
     plan = tsp.BatchTilePermute.build(
         [tsp.DeviceTilePlan.build(p, 512) for p in perms], device="cuda")
     x = torch.from_numpy(rng.normal(size=(3 * 512, LANES))).to(dtype).cuda()
-    before = tp.launch_count
+    before = trace.counter("launch.tile_permute")
     got = plan(x)
     torch.cuda.synchronize()
-    assert tp.launch_count == before + 1
+    assert trace.counter("launch.tile_permute") == before + 1
     args = (x, plan.r1, plan.r2, plan.src, plan.lane, 512, 3)
     assert torch.equal(got.reshape(-1, LANES), tp.tile_permute_reference(*args))
     with pytest.raises(TypeError):
@@ -548,12 +549,12 @@ def test_route_stage_kernel_bit_equal_to_plain_on_card(cr):
                            device="cuda").plan
     x = torch.from_numpy(rng.normal(size=n).astype(np.float32)).cuda()
     mul = torch.from_numpy(rng.normal(size=n).astype(np.float32)).cuda()
-    before = rs.launch_count
+    before = trace.counter("launch.route_stage")
     y1 = plan.expand_y1(x, mul)
     out_s = plan.reduce_strided(y1)
     out_t = plan(x, mul)
     torch.cuda.synchronize()
-    assert rs.launch_count == before + 4
+    assert trace.counter("launch.route_stage") == before + 4
     cpu = plan_on_cpu(plan)
     assert torch.equal(y1.cpu(), cpu.expand_y1(x.cpu(), mul.cpu()))
     assert torch.equal(out_s, out_t)
@@ -579,10 +580,10 @@ def test_tile_permute_replicates_on_card(dtype):
     plan = tsp.BatchTilePermute.build(
         [tsp.DeviceTilePlan.build(p, 256) for p in perms], device="cuda")
     x = torch.from_numpy(rng.normal(size=(5, 2 * 256 * LANES))).to(dtype).cuda()
-    before = tp.launch_count
+    before = trace.counter("launch.tile_permute")
     got = plan(x)
     torch.cuda.synchronize()
-    assert tp.launch_count == before + 1
+    assert trace.counter("launch.tile_permute") == before + 1
     want = tp.tile_permute_reference(
         x.reshape(-1, LANES), plan.r1, plan.r2, plan.src, plan.lane, 256, 2,
         replicates=5)
@@ -604,7 +605,7 @@ def test_route_stage_replicate_arm_on_card(cr, B):
                            device="cuda").plan
     x = torch.from_numpy(rng.normal(size=(B, n)).astype(np.float32)).cuda()
     mul = torch.from_numpy(rng.normal(size=n).astype(np.float32)).cuda()
-    before = rs.launch_count
+    before = trace.counter("launch.route_stage")
     y1 = plan.expand_y1_batch(x, mul)
     y1_plain = plan.expand_y1_batch(x)
     out = plan.reduce_strided_batch(y1, sliced=False)
@@ -614,7 +615,7 @@ def test_route_stage_replicate_arm_on_card(cr, B):
           plan.n_dst, plan.R3, cr)
     out_t = rs.route_stage(zg, plan.reduce_stage)
     torch.cuda.synchronize()
-    assert rs.launch_count == before + 4
+    assert trace.counter("launch.route_stage") == before + 4
     s1 = (plan.s1_r1, plan.s1_src, plan.s1_row, plan.s1_r2, None,
           plan.n_src, cr, plan.R1)
     xb = x.reshape(B, -1, LANES)
@@ -667,14 +668,16 @@ def test_route_stage_variants_on_card(cr, dtype, B):
     zg = zg.contiguous().reshape(B, plan.n_dst * plan.R3, LANES)
     cases = [(ex, v, m) for v in (x, unaligned) for m in (None, mul)]
     cases += [(red, v, None) for v in (plan.quota_view(y), zg)]
-    before = rs.launch_count, rs.replicate_launch_count
+    before = (trace.counter("launch.route_stage"),
+              trace.counter("launch.route_stage.replicate"))
     for stage, v, m in cases:
         got = rs.route_stage(v, stage, mul=m)
         torch.cuda.synchronize()
         assert torch.equal(got, stage.reference(v, mul=m))
         for b in range(B):
             assert torch.equal(got[b], rs.route_stage(v[b], stage, mul=m))
-    assert (rs.launch_count, rs.replicate_launch_count) == (
+    assert (trace.counter("launch.route_stage"),
+            trace.counter("launch.route_stage.replicate")) == (
         before[0] + len(cases) * (1 + B), before[1] + len(cases))
 
 
@@ -694,10 +697,10 @@ def test_tile_permute_offsets_on_card(rows, n_tiles, dtype, B):
     assert plan.stage.off.dtype == rs.offset_dtype(rows)
     x = torch.from_numpy(
         rng.normal(size=(B, n_tiles * rows * LANES))).to(dtype).cuda()
-    before = tp.launch_count
+    before = trace.counter("launch.tile_permute")
     got = plan(x)
     torch.cuda.synchronize()
-    assert tp.launch_count == before + 1
+    assert trace.counter("launch.tile_permute") == before + 1
     assert torch.equal(got.reshape(-1, LANES), tp.tile_permute_reference(
         x.reshape(-1, LANES), plan.r1, plan.r2, plan.src, plan.lane, rows,
         n_tiles, replicates=B))
