@@ -2872,7 +2872,8 @@ def phase_mode_bench(R, T, device, tmp: Path, capture, cli: dict) -> tuple:
         for k, n in boots_launches(run, fused).items():
             want[k] += n
     assert launched == want, (launched, want)
-    data, mult, init = kept["data"], kept["mult"], kept["init"]
+    # the run's replicates came from its draw stream: all its rows
+    data, mult, init = kept["data"], kept["mult"][:], kept["init"]
     assert em_v4._batch_eligible(data), "the batches ran one by one"
     meta = json.loads((work / "out.meta_info.json").read_text())
     kept_reads = int(meta["discard_table"]["valid_best_aln"])

@@ -403,11 +403,15 @@ def profiled(profile_dir: Path, args: Args):
     written when the run ends or raises, as a gzipped Chrome trace
     `<host>_<pid>.<ns>.pt.trace.json.gz` in `profile_dir`, so the processes
     of a `--num-processes` run each write their own file. Perfetto,
-    `chrome://tracing` or TensorBoard's PyTorch profiler plugin open it."""
+    `chrome://tracing` or TensorBoard's PyTorch profiler plugin open it.
+    Every thread is traced: the bootstrap draw's span (`boot.draw`) runs
+    on a thread of its own."""
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import profile, tensorboard_trace_handler
 
     return profile(
         activities=profile_activities(args),
+        experimental_config=_ExperimentalConfig(profile_all_threads=True),
         on_trace_ready=tensorboard_trace_handler(str(profile_dir),
                                                  use_gzip=True))
 

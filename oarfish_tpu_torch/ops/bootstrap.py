@@ -12,12 +12,16 @@ formulation's business: the routed v4 EM runs it as one program
 (`em_v4._m_step_v4_batch`).
 
 The draw stays in NumPy so that one `--seed` gives the same replicates
-here and in the JAX package.
+here and in the JAX package. The CLI's one-device path draws on a thread
+of its own (`DrawStream`), a batch at a time from the seed's one stream,
+while the route, the point EM and the earlier batches run.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+import threading
+import time
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +43,110 @@ def sample_multiplicities(
     ).astype(np.float64)
 
 
+class DrawStream:
+    """The rows of `sample_multiplicities(rng, num_boot, num_reads)[:,
+    order]`, drawn on a thread of its own (`boot-draw`) `batch`
+    replicates a call from the same stream: a generator's consecutive
+    `multinomial` calls give the rows of one call, and each call releases
+    the interpreter lock. The thread draws from its start; `set_order`
+    gives the layout's read order (None: the rows as drawn), and the
+    batches drawn before it wait for it. The rows are int32 (a
+    multiplicity is a small count, so a device `.to(dtype)` gives the
+    float array's values); pad rows of an order take read 0's count, as
+    the fancy index does.
+
+    It is indexed like the `[num_boot, rows]` array it fills: an index or
+    a slice blocks until its replicates' batches are written, and a wait
+    is counted (`boot.draw_wait_s`, its seconds, and `boot.draws_waited`,
+    `utils/trace.py`). The draw is the span `boot.draw` on the thread. An
+    exception there is raised at the next access; `close()` stops the
+    thread between batches and joins it."""
+
+    def __init__(self, rng: np.random.Generator, num_boot: int,
+                 num_reads: int, batch: int = BOOT_BATCH):
+        self.num_boot, self.num_reads, self.batch = num_boot, num_reads, batch
+        self._rng = rng
+        self._order: Optional[np.ndarray] = None
+        self._ordered = threading.Event()
+        self._ready = [threading.Event() for _ in range(0, num_boot, batch)]
+        self._rows: Optional[np.ndarray] = None
+        self._error: Optional[BaseException] = None
+        self._stop = False
+        self._thread = threading.Thread(target=self._draw, name="boot-draw",
+                                        daemon=True)
+        self._thread.start()
+
+    def set_order(self, order: Optional[np.ndarray]) -> None:
+        self._order = order
+        self._ordered.set()
+
+    def close(self) -> None:
+        self._stop = True
+        self._ordered.set()
+        self._thread.join()
+
+    def __len__(self) -> int:
+        return self.num_boot
+
+    def __getitem__(self, key):
+        picked = range(self.num_boot)[key]
+        if isinstance(picked, int):
+            picked = range(picked, picked + 1)
+        if picked:
+            ready = self._ready[min(picked) // self.batch:
+                                max(picked) // self.batch + 1]
+            if not all(e.is_set() for e in ready):
+                t0 = time.perf_counter()
+                for e in ready:
+                    e.wait()
+                trace.count("boot.draw_wait_s", time.perf_counter() - t0)
+                trace.count("boot.draws_waited")
+        if self._error is not None:
+            raise self._error
+        return self._rows[key]
+
+    def _draw(self) -> None:
+        done = False
+        try:
+            with trace.span("boot.draw", replicates=self.num_boot,
+                            reads=self.num_reads):
+                p = np.full(self.num_reads, 1.0 / self.num_reads)
+                drawn: List[Tuple[int, np.ndarray]] = []
+                for b0 in range(0, self.num_boot, self.batch):
+                    if self._stop:
+                        break
+                    n = min(self.batch, self.num_boot - b0)
+                    counts = self._rng.multinomial(self.num_reads, p, size=n)
+                    drawn.append((b0, counts.astype(np.int32)))
+                    if self._ordered.is_set():
+                        self._place(drawn)
+                        drawn = []
+                self._ordered.wait()
+                if not self._stop:
+                    self._place(drawn)
+                    done = True
+        except Exception as e:  # raised again to the consumer
+            self._error = e
+        finally:
+            if not done and self._error is None:
+                self._error = RuntimeError("the bootstrap draw was closed")
+            for e in self._ready:
+                e.set()
+
+    def _place(self, drawn: List[Tuple[int, np.ndarray]]) -> None:
+        order = self._order
+        for b0, counts in drawn:
+            if self._rows is None:
+                width = self.num_reads if order is None else len(order)
+                self._rows = np.empty((self.num_boot, width), np.int32)
+            out = self._rows[b0:b0 + len(counts)]
+            if order is None:
+                out[...] = counts
+            else:
+                np.take(counts, order, axis=1, out=out)
+            self._ready[b0 // self.batch].set()
+
+
 def _to_host(t: torch.Tensor) -> torch.Tensor:
     """Start the copy of a device tensor into pinned host memory and return
     the host tensor; it holds the values once the device has been
@@ -52,11 +160,12 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
 def run_replicates(
     run: Callable[[torch.Tensor, torch.Tensor],
                   Tuple[torch.Tensor, torch.Tensor]],
-    mult: np.ndarray,
+    mult,
     init: torch.Tensor,
     batch: int = BOOT_BATCH,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Feed `mult` ([B, R], host) to `run(init[b, T], mult[b, R]) ->
+    """Feed `mult` ([B, R] on the host: an array, or a `DrawStream` whose
+    batches are taken as they are written) to `run(init[b, T], mult[b, R]) ->
     (counts[b, T], niter[b])` in batches of at most `batch` replicates;
     returns ([B, T] f64 counts, [B] iterations) on the host. Freezing is
     per replicate, so the batch size does not change what a replicate
@@ -71,8 +180,13 @@ def run_replicates(
     after the synchronization. Its attributes: `batches`, `batch`,
     `useful_steps` (the m-steps each replicate ran until it froze, the
     final step included, summed), `slot_steps` (each batch's size times
-    its m-steps, summed) and the kernels' `launches`."""
-    with trace.span("boot.batches", {"launches": trace.launches}) as sp:
+    its m-steps, summed), the kernels' `launches`, and of a stream's
+    rows `draw_wait_s` (the seconds the batches waited for them, summed)
+    and `draws_waited` (the batches that waited)."""
+    with trace.span("boot.batches", {"launches": trace.launches,
+                                     "draw_wait_s": "boot.draw_wait_s",
+                                     "draws_waited": "boot.draws_waited"}
+                    ) as sp:
         pending = []
         for b0 in range(0, len(mult), batch):
             m = torch.as_tensor(mult[b0:b0 + batch],

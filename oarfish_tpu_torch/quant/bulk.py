@@ -238,8 +238,9 @@ def perform_inference_and_write_output(
     is (plan-cache Prefetch, BAM pointer key) from
     `quantify_bulk_alignments_from_bam`. Its phases are the spans
     `bulk.prepare`, `bulk.route`, `bulk.em`, `bulk.write.quant`,
-    `boot.draw`, `boot.batches` (`ops/bootstrap.py`),
-    `bulk.write.infreps` and `bulk.write.probs` (`utils/trace.py`)."""
+    `boot.batches` (`ops/bootstrap.py`), `bulk.write.infreps` and
+    `bulk.write.probs` (`utils/trace.py`), and on one device `boot.draw`
+    on the draw's own thread, from before the route on."""
     device = resolve_device(args.device)
     dtype = resolve_em_dtype(args.em_dtype, device)
     multi = process_count() > 1
@@ -270,6 +271,30 @@ def perform_inference_and_write_output(
         log.info("--num-shards %d not used: --em-impl %s with bootstrap "
                  "replicates runs on one device", args.num_shards, impl)
 
+    # the replicates are drawn on their own thread from here on, while the
+    # route, the point EM and the earlier batches run
+    draw = None
+    if args.num_bootstraps > 0:
+        draw = bootstrap_ops.DrawStream(np.random.default_rng(args.seed),
+                                        args.num_bootstraps, store.num_reads)
+    try:
+        return _one_device_inference_and_write(
+            store, txps_name, txps_len, opts, args, digest, aln_time_s,
+            dens_prob, init, dtype, device, impl, pre, plan_hint, draw,
+        )
+    finally:
+        # a run that raised leaves no thread drawing into the next one
+        if draw is not None:
+            draw.close()
+
+
+def _one_device_inference_and_write(
+    store, txps_name, txps_len, opts, args, digest, aln_time_s, dens_prob,
+    init, dtype, device, impl: str, pre, plan_hint, draw,
+) -> np.ndarray:
+    """One device in one process: the route of `impl`, the point EM, and
+    the replicates of `draw` (a `DrawStream`, None without replicates),
+    which is given the route's read order as soon as it is built."""
     T = len(txps_name)
     squarem = args.em_accel == "squarem"
     read_order = None
@@ -335,6 +360,12 @@ def perform_inference_and_write_output(
                 use_pallas_gather=(impl == "pallas"), device=device,
             )
             run = run_em_fast_squarem if squarem else run_em_fast
+        if draw is not None:
+            # read multiplicities are exchangeable, so the fast layout's
+            # relabeled read order takes the draw as it comes; the v4
+            # layout takes it per padded bucket row (both as the JAX
+            # package does)
+            draw.set_order(read_order)
         init_t = initial_abundances(data, init, dtype)
 
     t0 = time.time()
@@ -358,20 +389,8 @@ def perform_inference_and_write_output(
         write_output(args.output, info, txps_name, txps_len, counts, unique,
                      total)
 
-    if args.num_bootstraps > 0:
+    if draw is not None:
         t0 = time.time()
-        with trace.span("boot.draw", replicates=args.num_bootstraps,
-                        reads=store.num_reads):
-            rng = np.random.default_rng(args.seed)
-            # read multiplicities are exchangeable, so the fast layout's
-            # relabeled read order takes the draw as it comes; the v4
-            # layout takes it per padded bucket row (both as the JAX
-            # package does)
-            mult = bootstrap_ops.sample_multiplicities(
-                rng, args.num_bootstraps, store.num_reads
-            )
-            if read_order is not None:
-                mult = mult[:, read_order]
         if impl == "v3":
             # no batch arm: one replicate after another, as in the JAX
             # package
@@ -383,14 +402,14 @@ def perform_inference_and_write_output(
                 return counts_b.unsqueeze(0), niter_b.unsqueeze(0)
 
             breps, boot_iters = bootstrap_ops.run_replicates(
-                one_by_one, mult, init_t, batch=1)
+                one_by_one, draw, init_t, batch=1)
         else:
             breps, boot_iters = bootstrap_ops.run_replicates(
                 lambda i, m: run(
                     data, i, args.max_em_iter, args.convergence_thresh,
                     multiplicity=m,
                 ),
-                mult, init_t,
+                draw, init_t,
             )
         log.info(
             "%d bootstrap replicates in %.3fs, iterations %s",

@@ -172,13 +172,15 @@ TREE = {
     "bulk.route": "bulk.job", "v4.layout": "bulk.route",
     "v4.finish": "bulk.route", "route.upload": "v4.finish",
     "bulk.em": "bulk.job", "bulk.write.quant": "bulk.job",
-    "boot.draw": "bulk.job", "boot.batches": "bulk.job",
+    "boot.batches": "bulk.job",
     "bulk.write.infreps": "bulk.job", "bulk.write.probs": "bulk.job",
+    # on the draw's own thread
+    "boot.draw": "-",
 }
 # the children of a job, one after another
 JOB = ["bulk.ingest", "bulk.prepare", "bulk.route", "bulk.em",
-       "bulk.write.quant", "boot.draw", "boot.batches",
-       "bulk.write.infreps", "bulk.write.probs"]
+       "bulk.write.quant", "boot.batches", "bulk.write.infreps",
+       "bulk.write.probs"]
 
 
 @pytest.fixture(scope="module")
@@ -236,6 +238,10 @@ def test_bulk_job_span_tree(bulk_run):
     for a, b in zip(phases, phases[1:]):
         assert a.end <= b.start + 2e-6, (a.name, b.name)
     assert named["v4.layout"].end <= named["v4.finish"].start + 2e-6
+    # the draw starts before the route and ends inside the job
+    draw, job = named["boot.draw"], named["bulk.job"]
+    assert job.start - 2e-6 <= draw.start <= named["bulk.route"].start
+    assert draw.end <= job.end + 2e-6
     laps = [s for s in spans if s.parent == "v4.layout"]
     assert laps and all(s.name.startswith("v4.layout.") for s in laps)
 
