@@ -139,10 +139,11 @@ JSON object per phase goes to standard output:
                  m-step alone and 5 times em_full_width's ms an iteration
   mode_bench     the JAX system's three mode benchmarks through the same
                  entry point: `--e2e --boots 100 --reps 1` on cli_e2e's
-                 BAM (100 replicates, 12 batches of 8 and one of 4;
-                 exact launches over both runs, each replicate finite and
-                 within 1e-5 of the reads kept, replicates 0 and 96
-                 bit-equal to single runs with their multiplicities, one
+                 BAM (100 replicates on a pool of 8 slots; exact
+                 launches over both runs, each replicate finite and
+                 within 1e-5 of the reads kept, replicates 0, 96 and the
+                 slowest bit-equal to single runs with their
+                 multiplicities, one
                  batch m-step of 4 bit-equal through the kernels and
                  their plain versions), `--sc` (100,000 cells, dense, no
                  hand-written kernel; its BAM stays for single_cell) and
@@ -280,6 +281,7 @@ from oarfish_tpu_torch.ops.bootstrap import (
 )
 from oarfish_tpu_torch.ops.em import (
     EmData,
+    replicate_step,
     run_em,
     run_em_squarem,
     uniform_init,
@@ -1768,7 +1770,9 @@ def phase_segsum_replicates(csr, R, T, device,
 
     torch.cuda.synchronize(device)
     t0 = time.time()
-    batch, batch_iters = run_replicates(run, mult, init)
+    batch, batch_iters = run_replicates(
+        replicate_step(data, max_iter, defaults.convergence_thresh), mult,
+        init)
     batch_s = time.time() - t0
     singles, single_iters, single_s = [], [], []
     for b in range(REPLICATES):
@@ -2787,8 +2791,9 @@ def phase_bench(R, T, device, tmp: Path, em_full) -> tuple:
 
 
 # `bench --e2e --boots`: the JAX system's 100 replicates, 12 batches of
-# 8 and a last one of 4; the replicates held bit for bit against their
-# single runs: the first, and the first of the short batch
+# 8 slots; the replicates held bit for bit against their single runs:
+# the first, the first of the pool's last 4, and the one with the most
+# iterations
 MODE_BOOTS = 100
 MODE_SINGLES = (0, 96)
 
@@ -2821,11 +2826,9 @@ def recording_v4_replicates():
 
 def boots_launches(run: dict, fused: bool) -> dict:
     """Launches of one CLI run with replicates on v4: the point EM's
-    m-steps, then per batch of replicates as many batch m-steps as its
-    slowest replicate takes (one program, the arms' launches among them)."""
-    iters = run["bootstrap_iterations"]
-    batched = sum(max(iters[b:b + BOOT_BATCH]) + 1
-                  for b in range(0, len(iters), BOOT_BATCH))
+    m-steps, then the batch m-steps of the replicates' pool (one program
+    each, the arms' launches among them; the span `boot.batches`)."""
+    batched = run["bootstrap_msteps"]
     return v4_launches(run["em_iters"] + 1 + batched, fused, batched)
 
 
@@ -2834,8 +2837,8 @@ def phase_mode_bench(R, T, device, tmp: Path, capture, cli: dict) -> tuple:
     entry point: (a) `--e2e --boots 100 --reps 1` on cli_e2e's BAM (not
     built again): 100 replicates written, finite, each within 1e-5 of the
     reads kept, exact launches over both runs, the multiplicities drawn
-    again on the host (equal, timed), replicates 0 and 96 (the short
-    batch's first) bit-equal to single `run_em_v4` runs with their
+    again on the host (equal, timed), replicates 0, 96 and the one with
+    the most iterations bit-equal to single `run_em_v4` runs with their
     multiplicities, one batch m-step of 4 bit-equal through the kernels
     and their plain versions; (b) `--sc` at the JAX script's defaults
     (dense on the card, no hand-written kernel; its BAM stays for the
@@ -2898,7 +2901,8 @@ def phase_mode_bench(R, T, device, tmp: Path, capture, cli: dict) -> tuple:
     del drawn
     # launched after the main path's counts were read
     singles = {}
-    for i in MODE_SINGLES:
+    slowest = int(np.argmax(line["bootstrap_iterations"]))
+    for i in sorted({*MODE_SINGLES, slowest}):
         t0 = time.time()
         single, niter = em_v4.run_em_v4(
             data, init, defaults.max_em_iter, defaults.convergence_thresh,
@@ -2911,7 +2915,7 @@ def phase_mode_bench(R, T, device, tmp: Path, capture, cli: dict) -> tuple:
             f"{float(np.abs(reps[i] - single).sum() / kept_reads)})")
         singles[i] = dict(iterations=int(niter), bit_equal=True,
                           single_s=round(time.time() - t0, 3))
-    # one batch m-step of the short batch's 4 replicates: the arms at B = 4
+    # one batch m-step of the last 4 replicates: the arms at B = 4
     tail = mult[BOOT_BATCH * (MODE_BOOTS // BOOT_BATCH):]
     m_b = torch.as_tensor(tail, device=device).float()
     prev = torch.nn.functional.pad(uniform_init(data, torch.float32),
@@ -2925,7 +2929,7 @@ def phase_mode_bench(R, T, device, tmp: Path, capture, cli: dict) -> tuple:
     with plain_v4_kernels():
         plain = em_v4.make_m_step(data, m_b)(prev_b)
     arm_err = bit_equal("batch m-step of 4 replicates", got, plain)
-    # a batch m-step of the short batch and of the full batch before it:
+    # a batch m-step of the last 4 replicates and of the 8 before them:
     # between CUDA events as a loop calls it, and queued back to back
     step_ms = {}
     for b, rows in ((len(tail), tail),

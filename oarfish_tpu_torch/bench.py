@@ -430,7 +430,8 @@ class PhaseCapture(logging.Handler):
     """`quant/bulk.py`'s log lines of a run: the pack's timings (the
     attributes of the span `bulk.pack`), what `auto` took, the route
     build's and the EM's seconds, the iterations, and the bootstrap
-    replicates' seconds and iterations."""
+    replicates' seconds and iterations, and their batch m-steps (the
+    span `boot.batches`)."""
 
     EM = re.compile(r"(\w+) EM on \S+ \(\w+\) converged after (\d+) "
                     r"iterations in ([0-9.]+)s")
@@ -442,13 +443,15 @@ class PhaseCapture(logging.Handler):
         super().__init__(level=logging.INFO)
         self.route_build_s = self.em_s = self.em_iters = self.impl = None
         self.pack = {}
-        self.boot = None
+        self.boot = self.boot_msteps = None
 
     def emit(self, record):
         msg = record.getMessage()
         span = trace.parse(msg)
         if span is not None and span.name == "bulk.pack":
             self.pack = dict(span.attrs)
+        if span is not None and span.name == "boot.batches":
+            self.boot_msteps = span.attrs["msteps"]
         m = self.ROUTING.search(msg)
         if m:
             self.route_build_s = float(m.group(2))
@@ -479,7 +482,8 @@ def logged(handler: logging.Handler):
 def run_once(bam: Path, out: Path, ns, extra=()) -> dict:
     """One quantification of `bam` with the CLI's defaults and `--impl`,
     `--cov`, `--device`, and the CLI arguments `extra`; a run that draws
-    bootstrap replicates also reports their seconds and iterations."""
+    bootstrap replicates also reports their seconds, iterations and batch
+    m-steps."""
     from .cli import build_parser, to_args
     from .config import resolve_filters
     from .quant.bulk import quantify_bulk_alignments_from_bam
@@ -508,6 +512,7 @@ def run_once(bam: Path, out: Path, ns, extra=()) -> dict:
     }
     if cap.boot is not None:
         run["bootstrap_s"], run["bootstrap_iterations"] = cap.boot
+        run["bootstrap_msteps"] = cap.boot_msteps
     return run
 
 

@@ -16,9 +16,10 @@ reads, T = 200,000 transcripts, seed 0): the CLI's defaults with
 `--num-bootstraps N --threads 4`, once cold and `--reps` (2) times warm:
 `e2e_100boot_wall_s` (the warm median wall, the script's name whatever N),
 `walls`, `replicates_written` (the columns of the run's `.infreps.pq`),
-`per_replicate_s`; the port's `bootstrap_s` and iterations from
-`quant/bulk.py`'s log line, per replicate and per batch of
-`ops/bootstrap.BOOT_BATCH`, `cold`, `warm`, `peak_rss_gb`, `impl`.
+`per_replicate_s`; the port's `bootstrap_s` and iterations per
+replicate from `quant/bulk.py`'s log line, the batch m-steps of the
+replicates' pool (the span `boot.batches`), `cold`, `warm`,
+`peak_rss_gb`, `impl`.
 
 `--sc` (100,000 cells x 50 reads, T = 30,000; `--quick` 2,000 x 30 over
 5,000): a CB-collated BAM (`build_sc_bam`, the script's bytes for the same
@@ -86,8 +87,6 @@ def boots_bench(ns, device) -> BenchRun:
     `--reps` times warm."""
     import pyarrow.parquet as pq
 
-    from .ops.bootstrap import BOOT_BATCH
-
     extra = ["--num-bootstraps", str(ns.boots), "--threads", str(ns.threads)]
     with contextlib.ExitStack() as stack:
         work = work_dir(stack, ns.work_dir, "oarfish_boot_")
@@ -115,9 +114,7 @@ def boots_bench(ns, device) -> BenchRun:
         "per_replicate_s": round(med / ns.boots, 3),
         "bootstrap_s": warm["bootstrap_s"],
         "bootstrap_iterations": iters,
-        # a batch runs to its slowest replicate
-        "batch_iterations": [max(iters[b:b + BOOT_BATCH])
-                             for b in range(0, len(iters), BOOT_BATCH)],
+        "bootstrap_msteps": warm["bootstrap_msteps"],
         "impl": warm["impl"],
         "peak_rss_gb": peak_rss_gb(),
         "R": ns.reads,

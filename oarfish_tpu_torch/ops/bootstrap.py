@@ -6,9 +6,10 @@ serial EM over that multiset (`bootstrap.rs:7-16`, `em.rs:273-314`).
 Because the M step is linear in read occurrences, a with-replacement
 index sample is exactly a per-read multiplicity vector
 `c ~ Multinomial(R, 1/R)`; the device EM takes that vector directly and
-runs a batch of replicates as one loop, each replicate frozen at its own
-convergence point (see `em.em_loop`). What a batch costs is the
-formulation's business: the routed v4 EM runs it as one program
+runs the replicates on a pool of slots (`run_replicates`), each replicate
+frozen at its own convergence point (see `em.em_loop`) and its slot
+handed to the next one. What a batched step costs is the formulation's
+business: the routed v4 EM runs it as one program
 (`em_v4._m_step_v4_batch`).
 
 The draw stays in NumPy so that one `--seed` gives the same replicates
@@ -21,13 +22,22 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Callable, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..utils import trace
-from .em import EmData, initial_abundances, run_em, run_em_squarem
+from .em import (
+    CYCLES,
+    MIN_ITERS,
+    BatchStep,
+    EmData,
+    final_input,
+    hold_frozen,
+    initial_abundances,
+    replicate_step,
+)
 
 # replicates per batched loop: bounds the [B, A] temporaries of an m-step
 BOOT_BATCH = 8
@@ -157,52 +167,153 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
     return host.copy_(t, non_blocking=True)
 
 
+def _recorded(device: torch.device) -> Optional[torch.cuda.Event]:
+    """An event recorded on `device`'s current stream; None on the CPU,
+    whose work is done when it returns."""
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
 def run_replicates(
-    run: Callable[[torch.Tensor, torch.Tensor],
-                  Tuple[torch.Tensor, torch.Tensor]],
+    run: BatchStep,
     mult,
     init: torch.Tensor,
     batch: int = BOOT_BATCH,
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Feed `mult` ([B, R] on the host: an array, or a `DrawStream` whose
-    batches are taken as they are written) to `run(init[b, T], mult[b, R]) ->
-    (counts[b, T], niter[b])` in batches of at most `batch` replicates;
-    returns ([B, T] f64 counts, [B] iterations) on the host. Freezing is
-    per replicate, so the batch size does not change what a replicate
-    computes (on the card the order of a formulation's batched sums may
-    depend on it, and with it the last bits); a batch takes as many m-steps
-    as its slowest replicate. The
-    last batch is as short as it comes. Each batch's results stay on the
-    device until the copy into pinned host memory that is started behind
-    them, and are read only after the last batch has been run.
+    """Run the replicates of `mult` ([N, R] on the host: an array, or a
+    `DrawStream` whose rows are taken as they are written) from `init`
+    ([T]) through `run`'s batched m-step on a pool of `batch` slots;
+    returns ([N, T] f64 counts, [N] iterations) in replicate order.
 
-    The batches are the span `boot.batches` (`utils/trace.py`), which ends
-    after the synchronization. Its attributes: `batches`, `batch`,
-    `useful_steps` (the m-steps each replicate ran until it froze, the
-    final step included, summed), `slot_steps` (each batch's size times
-    its m-steps, summed), the kernels' `launches`, and of a stream's
-    rows `draw_wait_s` (the seconds the batches waited for them, summed)
-    and `draws_waited` (the batches that waited)."""
+    Every slot holds one replicate: a row of the `[B, S]` state, its
+    iteration count and a row of the multiplicities. Each step is one
+    cycle of `run.m_step` over the occupied slots. A replicate freezes
+    where its own run would stop (`em.em_loop` and `em.squarem_loop`:
+    converged after `MIN_ITERS`, or out of `max_iter`), holds its state,
+    and its next step is `em.finish_em`'s final step, in the same launch
+    as the others' cycles. The host learns of a freeze a step late, from
+    flags copied behind the next step, so it never waits for the device
+    while the device has nothing queued. It then writes the slot's final
+    step to the replicate's row of the output and loads the next
+    replicate into the slot; once none is left, finished slots leave the
+    batch. Neither when a replicate runs nor beside which others changes
+    its values, so the batch size does not change what it computes (on
+    the card the order of a formulation's batched sums could, and with it
+    the last bits). The rows of `mult` are taken `batch` at a time, when
+    the first of them is needed.
+
+    The pool is the span `boot.batches` (`utils/trace.py`), which ends
+    after the last copy to the host. Its attributes, in m-steps (a
+    SQUAREM cycle is 3): `msteps` (the batch's steps), `slot_steps` (each
+    step's size, summed), `useful_steps` (each replicate's iterations
+    and its final step, summed), `tail_steps` (steps with fewer than
+    `batch` slots occupied), `refills` (replicates loaded into a slot
+    that another one had left), `batches` (the `batch` rows of `mult`
+    taken at a time), `batch`, the kernels' `launches`, and of a
+    stream's rows `draw_wait_s` (the seconds spent waiting for them) and
+    `draws_waited` (the takes that waited)."""
+    cycle, k = CYCLES[run.accel]
+    n, T, device = len(mult), init.shape[-1], init.device
+    # pageable: a pinned [N, T] block would stay in the host allocator's
+    # cache from job to job, beside the writers' copy of the last one
+    counts = torch.empty((n, T), dtype=torch.float64)
+    iters = np.zeros(n, dtype=np.int32)
+    finished = np.zeros(n, dtype=bool)
+    start_frozen = k > run.max_iter
+
+    def take(first):
+        rows = torch.as_tensor(mult[first:first + batch], device=device)
+        return run.mult(rows.to(init.dtype))
+
+    def may_freeze(age):
+        return age * k > MIN_ITERS or (age + 1) * k > run.max_iter
+
     with trace.span("boot.batches", {"launches": trace.launches,
                                      "draw_wait_s": "boot.draw_wait_s",
                                      "draws_waited": "boot.draws_waited"}
                     ) as sp:
-        pending = []
-        for b0 in range(0, len(mult), batch):
-            m = torch.as_tensor(mult[b0:b0 + batch],
-                                device=init.device).to(init.dtype)
-            counts_b, niter_b = run(init.expand(m.shape[0], -1), m)
-            pending.append((_to_host(counts_b.double()), _to_host(niter_b)))
+        slots = list(range(min(batch, n)))  # the replicate in each slot
+        ages = [0] * len(slots)  # the cycles each has run
+        loaded = len(slots)
+        taken = first_taken = 0
+        if slots:
+            taken, chunk = 1, take(0)
+            mult_b = chunk[:len(slots)].clone()
+        ext = run.start(init)
+        prev = ext.expand(len(slots), -1).clone()
+        niter = torch.zeros(len(slots), dtype=torch.int32, device=device)
+        frozen = torch.full((len(slots),), start_frozen, device=device)
+        known = {}  # replicate -> iterations, once its flag has been read
+        last = in_flight = None
+        msteps = slot_steps = tail_steps = refills = 0
+        while slots:
+            if known:
+                keep = []
+                for j, r in enumerate(slots):
+                    if r not in known:
+                        keep.append(j)
+                        continue
+                    # the step after the freeze was the final one (the
+                    # copy waits for it, at most a step)
+                    counts[r].copy_(last[j, :T].double())
+                    iters[r], finished[r] = known.pop(r), True
+                    if loaded == n:
+                        continue
+                    if loaded == first_taken + batch:
+                        first_taken, chunk = loaded, take(loaded)
+                        taken += 1
+                    mult_b[j].copy_(chunk[loaded - first_taken])
+                    prev[j].copy_(ext)
+                    niter[j] = 0
+                    frozen[j] = start_frozen
+                    slots[j], ages[j] = loaded, 0
+                    loaded += 1
+                    refills += 1
+                    keep.append(j)
+                if not keep:
+                    break
+                if len(keep) < len(slots):
+                    idx = torch.tensor(keep, device=device)
+                    prev, niter, frozen, mult_b = (
+                        t.index_select(0, idx)
+                        for t in (prev, niter, frozen, mult_b))
+                    slots = [slots[j] for j in keep]
+                    ages = [ages[j] for j in keep]
+            B = len(slots)
+            # a frozen slot's step is the final one
+            last, curr, newly, stepped = cycle(
+                lambda p: run.m_step(p, mult_b), final_input(prev, frozen),
+                niter, run.convergence_thresh, MIN_ITERS)
+            prev, niter, frozen = hold_frozen(frozen, prev, niter, curr,
+                                              stepped, newly)
+            frozen = frozen | (niter + k > run.max_iter)
+            ages = [a + 1 for a in ages]
+            msteps += k
+            slot_steps += k * B
+            tail_steps += k if B < batch else 0
+            # this step's flags start for the host, the last step's are
+            # read: no flag while no slot can have frozen
+            sent = None
+            if any(map(may_freeze, ages)):
+                flags = _to_host(torch.stack((niter, frozen.to(niter.dtype))))
+                sent = (list(slots), flags, _recorded(device))
+            if in_flight is not None:
+                rows, flags, event = in_flight
+                if event is not None:
+                    event.synchronize()
+                for r, it, fr in zip(rows, *flags.tolist()):
+                    if fr and not finished[r]:
+                        known[r] = it
+            in_flight = sent
         if init.is_cuda:
-            torch.cuda.synchronize(init.device)
-        counts = np.concatenate([c.numpy() for c, _ in pending], axis=0)
-        iters = [n.numpy() for _, n in pending]
-        # a batch runs as many m-steps as its slowest replicate, and one
-        # final step
-        sp.set(batches=len(pending), batch=batch,
-               useful_steps=int(sum(n.sum() + len(n) for n in iters)),
-               slot_steps=int(sum(len(n) * (n.max() + 1) for n in iters)))
-    return counts, np.concatenate(iters, axis=0)
+            torch.cuda.synchronize(device)
+        sp.set(batches=taken, batch=batch, msteps=msteps,
+               useful_steps=int(iters.sum()) + n, slot_steps=slot_steps,
+               tail_steps=tail_steps, refills=refills)
+    return counts.numpy(), iters
 
 
 def bootstrap(
@@ -219,10 +330,5 @@ def bootstrap(
     mult = sample_multiplicities(rng, num_boot, data.num_reads)
     # per-replicate total weight: the multiset size is exactly R
     init = initial_abundances(data, init_abundances, data.weights.dtype)
-    run_one = run_em_squarem if accel == "squarem" else run_em
-    return run_replicates(
-        lambda i, m: run_one(
-            data, i, max_iter, convergence_thresh, multiplicity=m
-        ),
-        mult, init,
-    )[0]
+    step = replicate_step(data, max_iter, convergence_thresh, accel=accel)
+    return run_replicates(step, mult, init)[0]

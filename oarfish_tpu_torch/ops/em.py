@@ -37,8 +37,8 @@ it returns.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Callable, Optional, Tuple
+from dataclasses import dataclass, replace
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +47,8 @@ from ..constants import EM_DENOM_THRESH, MIN_READ_THRESH
 from ..device import resolve_device
 
 ALPHA_MAX = 64.0
+# no loop stops early while niter <= MIN_ITERS (`em.rs:194-212`)
+MIN_ITERS = 50
 # a replicate's alignments start at a multiple of this many elements in a
 # batch (512 bytes in f32, the caching allocator's alignment), so that the
 # card's segment sums load each of its segments as they do a single run's
@@ -146,6 +148,7 @@ class BatchSegments:
     read_offsets: torch.Tensor  # i64 [B * (R + 1) + 1]
     txp_offsets: torch.Tensor  # i64 [B * (T + 1) + 1]
     a_pad: int
+    num_rows: int  # B
 
     @staticmethod
     def build(data: EmData, B: int) -> "BatchSegments":
@@ -166,6 +169,19 @@ class BatchSegments:
             read_offsets=_batch_offsets(data.read_offsets, B, a_pad),
             txp_offsets=_batch_offsets(data.txp_offsets, B, a_pad),
             a_pad=a_pad,
+            num_rows=B,
+        )
+
+    def head(self, data: EmData, B: int) -> "BatchSegments":
+        """The layout of this batch's first B replicates: the offsets of
+        replicate B start where a batch of B ends."""
+        if B == self.num_rows:
+            return self
+        return replace(
+            self,
+            read_offsets=self.read_offsets[:B * (data.num_reads + 1) + 1],
+            txp_offsets=self.txp_offsets[:B * (data.num_txps + 1) + 1],
+            num_rows=B,
         )
 
 
@@ -236,40 +252,114 @@ def _loop_state(init: torch.Tensor):
     return niter, conv
 
 
+def em_cycle(m_step: MStep, t: torch.Tensor, niter: torch.Tensor,
+             convergence_thresh: float, min_iters: int):
+    """One plain EM step of a loop: (the step's result, the next state,
+    converged by this step, niter after it). `niter > min_iters` is
+    evaluated before the increment (`em.rs:194-212`)."""
+    curr = m_step(t)
+    newly = (_rel_diff(t, curr) < convergence_thresh) & (niter > min_iters)
+    return curr, curr, newly, niter + 1
+
+
+def squarem_cycle(m_step: MStep, t0: torch.Tensor, niter: torch.Tensor,
+                  convergence_thresh: float, min_iters: int):
+    """One cycle of squared-extrapolation EM acceleration (SQUAREM,
+    Varadhan & Roland 2008, scheme S3):
+
+        t1 = F(t0); t2 = F(t1)
+        r = t1 - t0; v = (t2 - t1) - r
+        alpha = -|r|/|v|  (clamped to [-ALPHA_MAX, -1])
+        t' = max(t0 - 2 alpha r + alpha^2 v, 0);  t3 = F(t')
+
+    costs 3 m-steps; alpha = -1 reduces to two plain steps. Returns (t1,
+    t3, converged by this cycle, niter after it): the convergence measure
+    is `_rel_diff` between the last two iterates, and `niter > min_iters`
+    is evaluated after the cycle. A leading replicate axis gets an alpha
+    per replicate."""
+    tiny = float(torch.finfo(t0.dtype).tiny)
+    t1 = m_step(t0)
+    t2 = m_step(t1)
+    r = t1 - t0
+    v = (t2 - t1) - r
+    rr = (r * r).sum(dim=-1, keepdim=True)
+    vv = (v * v).sum(dim=-1, keepdim=True)
+    alpha = -torch.sqrt(rr / vv.clamp_min(tiny))
+    alpha = alpha.clamp(-ALPHA_MAX, -1.0)
+    tp = t0 - 2.0 * alpha * r + (alpha * alpha) * v
+    tp = tp.clamp_min(0.0)
+    # degenerate curvature (v ~ 0: consecutive steps identical)
+    # means t2 is already (numerically) the fixed point
+    tp = torch.where(vv > tiny, tp, t2)
+    t3 = m_step(tp)
+    niter_new = niter + 3
+    newly = (_rel_diff(tp, t3) < convergence_thresh) & (niter_new > min_iters)
+    return t1, t3, newly, niter_new
+
+
+# `--em-accel`: a loop's cycle, and the m-steps it takes
+CYCLES = {"none": (em_cycle, 1), "squarem": (squarem_cycle, 3)}
+
+
+def hold_frozen(conv, prev, niter, curr, stepped, newly):
+    """A cycle's update of a loop's rows: those frozen before it (`conv`)
+    keep their state and count, the others take the cycle's; returns
+    (state, niter, frozen after it)."""
+    prev = torch.where(conv.unsqueeze(-1), prev, curr)
+    niter = torch.where(conv, niter, stepped)
+    return prev, niter, conv | newly
+
+
+def _cycle_loop(accel: str, m_step: MStep, init: torch.Tensor,
+                max_iter: int, convergence_thresh: float, min_iters: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    cycle, k = CYCLES[accel]
+    niter, conv = _loop_state(init)
+    prev = init
+    steps = 0
+    while steps + k <= max_iter:
+        # no replicate can have converged while niter <= min_iters, so
+        # the device is only asked once early stopping is possible
+        if steps > min_iters and bool(conv.all()):
+            break
+        _, curr, newly, stepped = cycle(m_step, prev, niter,
+                                        convergence_thresh, min_iters)
+        prev, niter, conv = hold_frozen(conv, prev, niter, curr, stepped,
+                                        newly)
+        steps += k
+    return prev, niter
+
+
 def em_loop(
     m_step: MStep,
     init: torch.Tensor,
     max_iter: int,
     convergence_thresh: float,
-    min_iters: int = 50,
+    min_iters: int = MIN_ITERS,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain EM loop shared by every formulation: returns
     (abundances before the final step, niter). With a leading replicate
     axis each replicate keeps its own `niter` and stops updating once it
     has converged or reached `max_iter`."""
-    niter, conv = _loop_state(init)
-    prev = init
-    steps = 0
-    while steps < max_iter:
-        # no replicate can have converged while niter <= min_iters, so
-        # the device is only asked once early stopping is possible
-        if steps > min_iters and bool(conv.all()):
-            break
-        curr = m_step(prev)
-        rd = _rel_diff(prev, curr)
-        # `niter > min_iters` is evaluated before the increment
-        newly = (rd < convergence_thresh) & (niter > min_iters)
-        prev = torch.where(conv.unsqueeze(-1), prev, curr)
-        niter = torch.where(conv, niter, niter + 1)
-        conv = conv | newly
-        steps += 1
-    return prev, niter
+    return _cycle_loop("none", m_step, init, max_iter, convergence_thresh,
+                       min_iters)
+
+
+def final_input(t: torch.Tensor,
+                rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The final step's input: abundances below MIN_READ_THRESH zeroed
+    (`em.rs:238-252`), in every row or, with `rows` (`[B]` bool), in
+    those rows alone."""
+    small = t < MIN_READ_THRESH
+    if rows is not None:
+        small = rows.unsqueeze(-1) & small
+    return torch.where(small, 0.0, t)
 
 
 def finish_em(m_step: MStep, t: torch.Tensor) -> torch.Tensor:
     """Zero abundances below MIN_READ_THRESH, then one final step
     (`em.rs:238-252`)."""
-    return m_step(torch.where(t < MIN_READ_THRESH, 0.0, t))
+    return m_step(final_input(t))
 
 
 def run_em(
@@ -278,7 +368,7 @@ def run_em(
     max_iter: int,
     convergence_thresh: float,
     multiplicity: Optional[torch.Tensor] = None,
-    min_iters: int = 50,
+    min_iters: int = MIN_ITERS,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full EM loop (`em.rs:144-255`): fused E/M steps, early stop after
     `min_iters`, then zero tiny abundances and run one final step.
@@ -294,50 +384,14 @@ def squarem_loop(
     init: torch.Tensor,
     max_iter: int,
     convergence_thresh: float,
-    min_iters: int = 50,
+    min_iters: int = MIN_ITERS,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Squared-extrapolation EM acceleration (SQUAREM, Varadhan & Roland
-    2008, scheme S3): each cycle
-
-        t1 = F(t0); t2 = F(t1)
-        r = t1 - t0; v = (t2 - t1) - r
-        alpha = -|r|/|v|  (clamped to [-ALPHA_MAX, -1])
-        t' = max(t0 - 2 alpha r + alpha^2 v, 0);  t3 = F(t')
-
-    costs 3 m-steps; alpha = -1 reduces to two plain steps. Same loop
-    protocol as `em_loop`: niter counts m-step applications, `max_iter`
-    is a hard cap on them (the loop may stop up to 2 short), and the
-    convergence measure is `_rel_diff` between the last two iterates. A
-    leading replicate axis is handled per replicate."""
-    tiny = float(torch.finfo(init.dtype).tiny)
-    niter, conv = _loop_state(init)
-    t0 = init
-    steps = 0
-    while steps + 3 <= max_iter:
-        if steps > min_iters and bool(conv.all()):
-            break
-        t1 = m_step(t0)
-        t2 = m_step(t1)
-        r = t1 - t0
-        v = (t2 - t1) - r
-        rr = (r * r).sum(dim=-1, keepdim=True)
-        vv = (v * v).sum(dim=-1, keepdim=True)
-        alpha = -torch.sqrt(rr / vv.clamp_min(tiny))
-        alpha = alpha.clamp(-ALPHA_MAX, -1.0)
-        tp = t0 - 2.0 * alpha * r + (alpha * alpha) * v
-        tp = tp.clamp_min(0.0)
-        # degenerate curvature (v ~ 0: consecutive steps identical)
-        # means t2 is already (numerically) the fixed point
-        tp = torch.where(vv > tiny, tp, t2)
-        t3 = m_step(tp)
-        rd = _rel_diff(tp, t3)
-        niter_new = niter + 3
-        newly = (rd < convergence_thresh) & (niter_new > min_iters)
-        t0 = torch.where(conv.unsqueeze(-1), t0, t3)
-        niter = torch.where(conv, niter, niter_new)
-        conv = conv | newly
-        steps += 3
-    return t0, niter
+    """The SQUAREM loop (`squarem_cycle`) under `em_loop`'s protocol:
+    niter counts m-step applications, `max_iter` is a hard cap on them
+    (the loop may stop up to 2 short), and a leading replicate axis is
+    handled per replicate."""
+    return _cycle_loop("squarem", m_step, init, max_iter,
+                       convergence_thresh, min_iters)
 
 
 def squarem_em(
@@ -345,7 +399,7 @@ def squarem_em(
     init: torch.Tensor,
     max_iter: int,
     convergence_thresh: float,
-    min_iters: int = 50,
+    min_iters: int = MIN_ITERS,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full accelerated-EM protocol shared by every formulation: SQUAREM
     loop, zero-below-MIN_READ_THRESH, one final m-step."""
@@ -361,13 +415,49 @@ def run_em_squarem(
     max_iter: int,
     convergence_thresh: float,
     multiplicity: Optional[torch.Tensor] = None,
-    min_iters: int = 50,
+    min_iters: int = MIN_ITERS,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`run_em` with SQUAREM acceleration (see `squarem_loop`)."""
+    """`run_em` with SQUAREM acceleration (see `squarem_cycle`)."""
     return squarem_em(
         make_m_step(data, init, multiplicity),
         init, max_iter, convergence_thresh, min_iters,
     )
+
+
+@dataclass(frozen=True)
+class BatchStep:
+    """A formulation's batched m-step, as the bootstrap pool
+    (`bootstrap.run_replicates`) drives it. `m_step(prev[B, S],
+    mult[B, ...]) -> [B, S]` takes any B >= 1 and gives each row the
+    values of its replicate's step alone; `mult(rows)` puts `[n, R]`
+    multiplicities (on the device, in the start's dtype) in the form
+    `m_step` takes, replicates on the leading axis; `start(init[T]) ->
+    [S]` is the state a replicate starts from, whose first T entries are
+    its counts. The loop's settings are those of the formulation's
+    `run_em*` with `accel` (`--em-accel`), at `MIN_ITERS`."""
+
+    m_step: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+    max_iter: int
+    convergence_thresh: float
+    accel: str = "none"
+    mult: Callable[[torch.Tensor], torch.Tensor] = lambda m: m
+    start: Callable[[torch.Tensor], torch.Tensor] = lambda init: init
+
+
+def replicate_step(data: EmData, max_iter: int, convergence_thresh: float,
+                   accel: str = "none") -> BatchStep:
+    """The segment-sum EM's `BatchStep`: the flattened layout of the
+    largest batch it has been given, whose first B replicates serve a
+    batch of B."""
+    seg: List[BatchSegments] = []
+
+    def m_step(prev, mult):
+        B = prev.shape[0]
+        if not seg or seg[0].num_rows < B:
+            seg[:] = [BatchSegments.build(data, B)]
+        return _m_step(data, prev, mult, seg[0].head(data, B))
+
+    return BatchStep(m_step, max_iter, convergence_thresh, accel)
 
 
 def uniform_init(

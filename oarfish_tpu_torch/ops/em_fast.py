@@ -36,7 +36,7 @@ import torch
 
 from ..constants import EM_DENOM_THRESH
 from ..device import resolve_device
-from .em import em_loop, finish_em, squarem_em
+from .em import BatchStep, em_loop, finish_em, squarem_em
 from .sorted_gather import SortedGatherPlan, gather_rows
 
 log = logging.getLogger("oarfish_tpu_torch")
@@ -371,3 +371,11 @@ def run_em_fast_squarem(
         lambda p: _m_step_fast(data, p, multiplicity),
         init, max_iter, convergence_thresh, min_iters,
     )
+
+
+def replicate_step(data: FastEmData, max_iter: int, convergence_thresh: float,
+                   accel: str = "none") -> BatchStep:
+    """The scatter-free EM's `BatchStep`, the multiplicities `[n, R]` in
+    `read_order`."""
+    return BatchStep(lambda prev, mult: _m_step_fast(data, prev, mult),
+                     max_iter, convergence_thresh, accel)

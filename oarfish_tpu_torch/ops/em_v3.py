@@ -35,7 +35,7 @@ import torch
 from ..constants import EM_DENOM_THRESH
 from ..device import resolve_device
 from ..utils import trace
-from .em import em_loop, finish_em, squarem_em
+from .em import BatchStep, em_loop, finish_em, squarem_em
 from .em_fast import TILE, offset_sums, offset_tables
 from .sorted_gather import LANES, SortedGatherPlan, gather_rows
 from .static_permute import (
@@ -313,6 +313,19 @@ def run_em_v3_squarem(
         lambda p: _m_step_v3(data, p, multiplicity),
         init.to(data.w_csc.dtype), max_iter, convergence_thresh, min_iters,
     )
+
+
+def replicate_step(data: EmV3Data, max_iter: int, convergence_thresh: float,
+                   accel: str = "none") -> BatchStep:
+    """v3's `BatchStep`: no batch arm, so the rows of a batch run one
+    after another (the CLI gives it batches of one)."""
+
+    def m_step(prev, mult):
+        return torch.stack([_m_step_v3(data, p, m)
+                            for p, m in zip(prev, mult)])
+
+    return BatchStep(m_step, max_iter, convergence_thresh, accel,
+                     start=lambda init: init.to(data.w_csc.dtype))
 
 
 def make_runner(data: EmV3Data, accel: str = "none"):

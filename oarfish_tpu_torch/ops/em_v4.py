@@ -87,7 +87,7 @@ from ..device import resolve_device
 from ..utils import trace
 from . import balance as _balance
 from . import plan_cache
-from .em import em_loop, finish_em, squarem_loop
+from .em import BatchStep, em_loop, finish_em, squarem_loop
 from .route_middle import route_middle
 from .row_sums import RowSumPlan, RowSumTable, bucket_table, row_sums
 from .static_permute import (
@@ -1529,24 +1529,38 @@ def _m_step_v4_b(data: EmV4Data, prev_b: torch.Tensor,
         for b in range(prev_b.shape[0])])
 
 
+def _mult_form(data: EmV4Data, multiplicity: torch.Tensor) -> torch.Tensor:
+    """Multiplicities (`[row_space_r]` or `[B, row_space_r]`) as the
+    m-step takes them: in the slot layout on the fused path (`mult_slots`),
+    else as rows."""
+    mult = multiplicity.to(data.w_txp.dtype)
+    return mult_slots(data, mult) if data.seg_id is not None else mult
+
+
+def _step_with(data: EmV4Data, prev: torch.Tensor,
+               form: Optional[torch.Tensor]) -> torch.Tensor:
+    """The m-step of `prev` (`[t_space]`, or `[B, t_space]` for a batch of
+    replicates) with multiplicities in `_mult_form`, or none."""
+    step = _m_step_v4 if prev.dim() == 1 else _m_step_v4_b
+    if data.seg_id is not None:
+        return step(data, prev, None, form)
+    return step(data, prev, form, None)
+
+
 def make_m_step(data: EmV4Data, multiplicity: Optional[torch.Tensor]):
     """The m-step of a run as a function of `prev`: `[t_space]` with
     `multiplicity` `[row_space_r]` or none, or `[B, t_space]` with
     `[B, row_space_r]` or none for a batch of replicates. The fused path's
     slot layout of the multiplicities is made once, here."""
-    rows = slots = None
-    if multiplicity is not None:
-        mult = multiplicity.to(data.w_txp.dtype)
-        if data.seg_id is not None:
-            slots = mult_slots(data, mult)
-        else:
-            rows = mult
+    form = None if multiplicity is None else _mult_form(data, multiplicity)
+    return lambda prev: _step_with(data, prev, form)
 
-    def m_step(prev):
-        step = _m_step_v4 if prev.dim() == 1 else _m_step_v4_b
-        return step(data, prev, rows, slots)
 
-    return m_step
+def _extend(data: EmV4Data, init: torch.Tensor) -> torch.Tensor:
+    """`init` (`[..., T]`) padded with zeros to t_space, in the layout's
+    dtype."""
+    return torch.nn.functional.pad(
+        init.to(data.w_txp.dtype), (0, data.t_space - data.num_txps))
 
 
 def _run(loop, data: EmV4Data, init, max_iter, convergence_thresh,
@@ -1556,12 +1570,10 @@ def _run(loop, data: EmV4Data, init, max_iter, convergence_thresh,
     the counts are cut back to T after it. Pad positions hold zeros, route
     to zeros, and are masked out of the convergence test (`_rel_diff`
     requires prev > 1e-5)."""
-    T = data.num_txps
     m_step = make_m_step(data, multiplicity)
-    ext = torch.nn.functional.pad(
-        init.to(data.w_txp.dtype), (0, data.t_space - T))
-    prev, niter = loop(m_step, ext, max_iter, convergence_thresh, min_iters)
-    return finish_em(m_step, prev)[..., :T], niter
+    prev, niter = loop(m_step, _extend(data, init), max_iter,
+                       convergence_thresh, min_iters)
+    return finish_em(m_step, prev)[..., :data.num_txps], niter
 
 
 def run_em_v4(
@@ -1593,3 +1605,14 @@ def run_em_v4_squarem(
     `init` `[B, T]` the counterpart of `run_em_v4_batch_squarem`."""
     return _run(squarem_loop, data, init, max_iter, convergence_thresh,
                 multiplicity, min_iters)
+
+
+def replicate_step(data: EmV4Data, max_iter: int, convergence_thresh: float,
+                   accel: str = "none") -> BatchStep:
+    """The routed EM's `BatchStep`: `_m_step_v4_b` in the t_space-padded
+    space, the multiplicities `[n, row_space_r]` in `read_order`."""
+    return BatchStep(
+        lambda prev, form: _step_with(data, prev, form), max_iter,
+        convergence_thresh, accel,
+        mult=lambda m: _mult_form(data, m),
+        start=lambda init: _extend(data, init))

@@ -65,7 +65,8 @@ from ..ops.em import (
     run_em,
     run_em_squarem,
 )
-from ..ops import plan_cache
+from ..ops import em as em_ops
+from ..ops import em_fast, em_v3, em_v4, plan_cache
 from ..ops.em_fast import FastEmData, run_em_fast, run_em_fast_squarem
 from ..ops.em_v3 import EmV3Data, run_em_v3, run_em_v3_squarem
 from ..ops.em_v4 import (
@@ -324,6 +325,7 @@ def _one_device_inference_and_write(
             log.info("v4 layout: %d big transcripts, %s middle", data.n_big,
                      "fused" if data.seg_id is not None else "unfused")
             run = run_em_v4_squarem if squarem else run_em_v4
+            replicates = em_v4.replicate_step
         elif impl == "v3":
             t0 = time.time()
             with trace.span("v3.build") as build:
@@ -347,11 +349,13 @@ def _one_device_inference_and_write(
                      data.p2.Q, data.p1.R1, data.p2.R1, data.p1.R3,
                      data.p2.R3)
             run = run_em_v3_squarem if squarem else run_em_v3
+            replicates = em_v3.replicate_step
         elif impl == "segsum":
             data = build_em_inputs(
                 store, T, opts.model_coverage, dens_prob, dtype, device
             )
             run = run_em_squarem if squarem else run_em
+            replicates = em_ops.replicate_step
         else:
             data, _read_order = FastEmData.build(
                 store.txp_id,
@@ -360,6 +364,7 @@ def _one_device_inference_and_write(
                 use_pallas_gather=(impl == "pallas"), device=device,
             )
             run = run_em_fast_squarem if squarem else run_em_fast
+            replicates = em_fast.replicate_step
         if draw is not None:
             # read multiplicities are exchangeable, so the fast layout's
             # relabeled read order takes the draw as it comes; the v4
@@ -391,26 +396,13 @@ def _one_device_inference_and_write(
 
     if draw is not None:
         t0 = time.time()
-        if impl == "v3":
-            # no batch arm: one replicate after another, as in the JAX
-            # package
-            def one_by_one(i, m):
-                counts_b, niter_b = run(
-                    data, i[0], args.max_em_iter, args.convergence_thresh,
-                    multiplicity=m[0],
-                )
-                return counts_b.unsqueeze(0), niter_b.unsqueeze(0)
-
-            breps, boot_iters = bootstrap_ops.run_replicates(
-                one_by_one, draw, init_t, batch=1)
-        else:
-            breps, boot_iters = bootstrap_ops.run_replicates(
-                lambda i, m: run(
-                    data, i, args.max_em_iter, args.convergence_thresh,
-                    multiplicity=m,
-                ),
-                draw, init_t,
-            )
+        step = replicates(data, args.max_em_iter, args.convergence_thresh,
+                          accel=args.em_accel)
+        # v3 has no batch arm: one replicate after another, as in the JAX
+        # package
+        breps, boot_iters = bootstrap_ops.run_replicates(
+            step, draw, init_t,
+            batch=1 if impl == "v3" else bootstrap_ops.BOOT_BATCH)
         log.info(
             "%d bootstrap replicates in %.3fs, iterations %s",
             args.num_bootstraps,

@@ -173,9 +173,12 @@ def test_boots_line_and_replicates_equal_jax(boots_run, tmp_path):
     assert len(line["walls"]) == 1 and line["value"] == line["walls"][0]
     assert line["impl"] == "segsum" and "10 bootstraps" in line["unit"]
     assert len(line["bootstrap_iterations"]) == BOOTS
-    assert line["batch_iterations"] == [
-        max(line["bootstrap_iterations"][:8]),
-        max(line["bootstrap_iterations"][8:])]
+    # the pool of 8 slots takes no more batch m-steps than two fixed
+    # batches of 8 and 2, each run to its slowest replicate and its final
+    # step, and no fewer than its slowest replicate
+    iters = line["bootstrap_iterations"]
+    assert (max(iters) + 1 <= line["bootstrap_msteps"]
+            <= max(iters[:8]) + max(iters[8:]) + 2)
     assert line["cold"]["bootstrap_iterations"] == line["bootstrap_iterations"]
     bam = work / f"e2e_R{BOOT_R}_T{BOOT_T}_s0.bam"
     args = JaxArgs(alignments=bam, output=tmp_path / "j", threads=4,
@@ -188,8 +191,8 @@ def test_boots_line_and_replicates_equal_jax(boots_run, tmp_path):
 
 
 def test_short_batch_replicate_equals_its_single_run(boots_run):
-    """Replicate 8 ran in the last batch, of 2: the bits and iterations of
-    a run of its own multiplicities alone."""
+    """Replicate 8 took the first slot of the pool that came free: the bits
+    and iterations of a run of its own multiplicities alone."""
     line, work, kept = boots_run
     defaults = Args()
     m8 = torch.as_tensor(kept["mult"][8], dtype=kept["init"].dtype)
@@ -324,14 +327,15 @@ def test_mode_defaults_are_the_scripts():
 
 
 def test_chip_smoke_counts_a_run_with_replicates():
-    """`chip_smoke.boots_launches`: the point EM's m-steps, then per batch
-    of 8 its slowest replicate's iterations and the final step, each a
-    launch of the arms too."""
+    """`chip_smoke.boots_launches`: the point EM's m-steps, then the batch
+    m-steps of the replicates' pool (the span's `msteps`), each a launch
+    of the arms too."""
     from chip_smoke import boots_launches
 
-    run = {"em_iters": 10, "bootstrap_iterations": [52] * 7 + [57, 40, 52]}
+    run = {"em_iters": 10, "bootstrap_iterations": [52] * 7 + [57, 40, 52],
+           "bootstrap_msteps": 95}
     got = boots_launches(run, fused=True)
-    batched = (57 + 1) + (52 + 1)
+    batched = 95
     assert got == {"sorted_gather": 0, "tile_permute": 2 * (11 + batched),
                    "route_stage": 2 * (11 + batched),
                    "route_middle": 11 + batched,

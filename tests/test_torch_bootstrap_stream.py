@@ -20,6 +20,7 @@ import torch
 
 from oarfish_tpu_torch.cli import main as torch_main
 from oarfish_tpu_torch.ops import bootstrap as boot
+from oarfish_tpu_torch.ops import em
 from oarfish_tpu_torch.quant import bulk
 from oarfish_tpu_torch.utils import trace
 from util_torch import one_torch_thread  # noqa: F401 (autouse fixture)
@@ -155,11 +156,11 @@ def test_a_run_whose_route_raises_leaves_no_drawing_thread(
     assert not draw_threads()
 
 
-def plain_run(init, m):
-    """An EM's stand-in: a replicate's counts are its multiplicities'
-    total, after one iteration."""
-    return (init + m.sum(dim=1, keepdim=True),
-            torch.ones(len(m), dtype=torch.int64))
+# an EM's stand-in: a replicate's counts are its multiplicities' total,
+# after one iteration
+PLAIN_STEP = em.BatchStep(
+    lambda prev, m: m.sum(dim=1, keepdim=True).expand_as(prev).clone(),
+    max_iter=1, convergence_thresh=0.0)
 
 
 def batches_attrs(caplog):
@@ -171,7 +172,7 @@ def batches_attrs(caplog):
 def run_batches(caplog, stream):
     init = torch.zeros(4, dtype=torch.float64)
     with caplog.at_level(logging.INFO, logger=LOGGER):
-        counts, iters = boot.run_replicates(plain_run, stream, init)
+        counts, iters = boot.run_replicates(PLAIN_STEP, stream, init)
     want = boot.sample_multiplicities(np.random.default_rng(3), 16, 500)
     assert np.array_equal(counts[:, 0], want.sum(axis=1))
     assert iters.tolist() == [1] * 16

@@ -206,8 +206,7 @@ def test_bootstrap_batching_does_not_change_replicates(monkeypatch):
     mult = tboot.sample_multiplicities(np.random.default_rng(3), 5, 300)
     init = tem.uniform_init(td, F64)
     parts, niters = tboot.run_replicates(
-        lambda i, m: tem.run_em(td, i, 120, 1e-3, multiplicity=m),
-        mult, init, batch=2)
+        tem.replicate_step(td, 120, 1e-3), mult, init, batch=2)
     np.testing.assert_array_equal(parts, whole)
     assert niters.shape == (5,) and (niters > 50).all()
 

@@ -102,7 +102,7 @@ def test_squarem_reaches_the_same_fixed_point(em_runs):
 
 
 def test_bootstraps_equal_serial_runs(cases):
-    """`run_replicates` over the batched loop equals one run per
+    """`run_replicates` on a pool of 2 slots equals one run per
     replicate, each with its own iteration count."""
     c = cases["uniform"]
     data = c["td"]
@@ -111,9 +111,7 @@ def test_bootstraps_equal_serial_runs(cases):
     mult = tboot.sample_multiplicities(rng, 3, R)[:, c["torder"]]
     assert mult.shape == (3, data.row_space_r)
     got, niters = tboot.run_replicates(
-        lambda i, m: tv4.run_em_v4(data, i, 56, 5e-3, multiplicity=m),
-        mult, init, batch=2,
-    )
+        tv4.replicate_step(data, 56, 5e-3), mult, init, batch=2)
     assert got.shape == (3, T)
     for b in range(3):
         want, niter = tv4.run_em_v4(
@@ -130,8 +128,8 @@ def test_batched_replicates_on_the_card_match_serial_runs(cases):
     a single launch, and the glue's row sums (`ops/row_sums.py`) add each
     row in a fixed order whatever the batch, so a replicate's counts do
     not depend on its batch: the same iterations as the serial run and the
-    same bits (f32, up to 200 iterations), whatever the batch (3 at once,
-    or 2 and 1)."""
+    same bits (f32, up to 200 iterations), whatever the pool (3 slots, or
+    2, the third replicate taking the first slot freed)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     c = cases["uniform"]
@@ -148,7 +146,8 @@ def test_batched_replicates_on_the_card_match_serial_runs(cases):
     serial = [run(init, torch.from_numpy(mult[b]).float().cuda())
               for b in range(3)]
     for batch in (3, 2):
-        got, niters = tboot.run_replicates(run, mult, init, batch=batch)
+        got, niters = tboot.run_replicates(
+            tv4.replicate_step(data, 200, 1e-3), mult, init, batch=batch)
         for b, (want, niter) in enumerate(serial):
             assert int(niters[b]) == int(niter) > 50, (batch, b)
             np.testing.assert_array_equal(
